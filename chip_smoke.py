@@ -3,14 +3,20 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA decode kernels from csrc/ with nvcc, holds each against its
-plain PyTorch version on the card (bit for bit), then drives the port's main
-path, the device-side column read: FLT files of every integer codec are
-written with the port's host writer from seeded numpy data, read back with
-`read_file_device` / `read_blocks_device` on the GPU and compared bit for bit
-with the host reader. The headline column is 131 072 blocks (2^27 u32 values,
-512 MiB decoded) at W=3. It then times each kernel at the largest shape the
-reads gave it, beside its bound, its plain version and a device copy.
+Builds the CUDA kernels from csrc/ with nvcc, holds each of the seven against
+its plain PyTorch version on the card (bit for bit), then drives the port's
+two main paths. The device-side column read: FLT files of every integer codec
+are written with the port's host writer from seeded numpy data, read back
+with `read_file_device` / `read_blocks_device` on the GPU and compared bit
+for bit with the host reader. The device-side column encode: the same columns,
+moved to the card, go through the codec classes (`BitPackedCodec.encode`,
+`auto_encode`, `get_codec(...).encode`), every `Encoded` is decoded again by
+its codec and compared bit for bit with the input, and its payload is held
+against the NumPy oracle on the first and last 1 024 blocks. The headline
+column is 131 072 blocks (2^27 u32 values, 512 MiB) at W=3 on both paths. It
+then times each kernel at the largest shape its path gave it, beside its
+bound, its plain version and a device copy, and each read and each encode
+end to end.
 
 Needs one CUDA device and nvcc; it never runs on the CPU. Every phase prints
 one JSON line; any failed phase raises and the exit code is not 0. The last
@@ -30,32 +36,45 @@ import time
 import numpy as np
 import torch
 
+import fastlanes_tpu_torch
 from fastlanes_tpu_torch import fio, fio_device
 from fastlanes_tpu_torch.core import layout
 from fastlanes_tpu_torch.kernels import build
 from fastlanes_tpu_torch.kernels import cuda_codecs as ck
+from fastlanes_tpu_torch.models import codecs
+from fastlanes_tpu_torch.ops import _engine as eng
+from fastlanes_tpu_torch.ref import numpy_ref as npref
 
 SEED = 20240607
 HEADLINE_BLOCKS = 131_072  # 2^27 values, 512 MiB decoded as u32
 LARGE_BLOCKS = 32_768  # one whole secondary column (2^25 u32 values)
 CHECK_BLOCKS = 257  # not a multiple of the CUDA block's FastLanes blocks
+ORACLE_BLOCKS = 1024  # blocks at each end of a payload held against the oracle
 
 #: published device-memory rate of one H100 SXM (bytes/s), for `bound_ms`
 HBM_BYTES_PER_S = 3.35e12
 #: 32-bit integer operations per second outside the tensor cores: half the
 #: published 67 TFLOP/s float32 rate, which counts a fused multiply-add as 2
 INT_OPS_PER_S = 33.5e12
-#: integer operations per decoded value in each kernel's row loop (shift,
-#: stitch, mask; + add; + running sum; + unzigzag), for the operations bound
+#: integer operations per value in each kernel's row loop (decode: shift,
+#: stitch, mask; + add; + running sum; + unzigzag. encode: mask, shift, or,
+#: carry; + subtract), for the operations bound
 OPS_PER_VALUE = {"unpack": 4, "unfor_pack": 5, "undelta_pack": 5,
-                 "unzdelta_pack": 9}
+                 "unzdelta_pack": 9, "pack": 4, "delta_pack": 5, "for_pack": 5}
 
+#: kernel -> the TPU kernel it replaces; the first four carry the read path,
+#: the last three the encode path
 KERNELS = {
     "unpack": "fastlanes_tpu/kernels/pallas_codecs.py:635",
     "unfor_pack": "fastlanes_tpu/kernels/pallas_codecs.py:721",
     "undelta_pack": "fastlanes_tpu/kernels/pallas_codecs.py:656",
     "unzdelta_pack": "fastlanes_tpu/kernels/pallas_codecs.py:674",
+    "pack": "fastlanes_tpu/kernels/pallas_codecs.py:611",
+    "delta_pack": "fastlanes_tpu/kernels/pallas_codecs.py:706",
+    "for_pack": "fastlanes_tpu/kernels/pallas_codecs.py:898",
 }
+DECODE_KERNELS = ("unpack", "unfor_pack", "undelta_pack", "unzdelta_pack")
+ENCODE_KERNELS = ("pack", "delta_pack", "for_pack")
 SOURCE = "fastlanes_tpu_torch/csrc/codecs.cu"
 
 
@@ -84,11 +103,11 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a64 - b64).abs().max())
 
 
-def call_kernel(name, packed, param, width, dtype, plain=False):
+def call_kernel(name, src, param, width, dtype, plain=False):
     fn = getattr(ck, name + "_plain" if plain else name)
-    if name == "unpack":
-        return fn(packed, width, dtype)
-    return fn(packed, param, width, dtype)
+    if name in ("unpack", "pack"):
+        return fn(src, width, dtype)
+    return fn(src, param, width, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -122,6 +141,9 @@ def phase_kernels(rng) -> dict:
     sample of widths, shared and per-block bases, both extreme references."""
     worst = {name: 0.0 for name in KERNELS}
     cases = {name: 0 for name in KERNELS}
+    # the encode kernels' inputs come from a stream of their own, so that the
+    # columns of make_columns stay what they were before these checks existed
+    values_rng = np.random.default_rng(SEED + 1)
     for dtype in layout.DTYPES:
         t = layout.bit_width(dtype)
         nl = layout.lanes(dtype)
@@ -133,16 +155,23 @@ def phase_kernels(rng) -> dict:
             bases = rng.integers(0, 1 << min(t, 63), size=(CHECK_BLOCKS, nl),
                                  dtype=np.uint64).astype(np_dt)
             per_block = torch.from_numpy(bases).cuda()
+            raw = values_rng.integers(0, 1 << t, size=(CHECK_BLOCKS, layout.BLOCK),
+                                      dtype=np.uint64)
+            values = torch.from_numpy(raw.astype(np_dt)).cuda()
             params = {
                 "unpack": [None],
                 "unfor_pack": [0, (1 << t) - 1],
                 "undelta_pack": [per_block[0].clone(), per_block],
                 "unzdelta_pack": [per_block[0].clone(), per_block],
+                "pack": [None],
+                "delta_pack": [per_block[0].clone(), per_block],
+                "for_pack": [0, (1 << t) - 1],
             }
             for name, plist in params.items():
+                src = values if name in ENCODE_KERNELS else packed
                 for param in plist:
-                    got = call_kernel(name, packed, param, width, dtype)
-                    want = call_kernel(name, packed, param, width, dtype, plain=True)
+                    got = call_kernel(name, src, param, width, dtype)
+                    want = call_kernel(name, src, param, width, dtype, plain=True)
                     torch.cuda.synchronize()
                     err = max_abs_err(got, want)
                     worst[name] = max(worst[name], err)
@@ -152,9 +181,27 @@ def phase_kernels(rng) -> dict:
                             f"kernel {name} disagrees with its plain version: "
                             f"{dtype} W={width} B={CHECK_BLOCKS} max_abs_err={err}")
     # an empty batch launches nothing and keeps its shape
+    before = dict(ck.LAUNCHES)
     empty = ck.unpack(torch.empty((0, 96), dtype=torch.uint32, device="cuda"), 3, "u32")
     if tuple(empty.shape) != (0, 1024):
         raise AssertionError(f"B=0 unpack gave shape {tuple(empty.shape)}")
+    none = torch.empty((0, 1024), dtype=torch.uint32, device="cuda")
+    shapes = [tuple(ck.pack(none, 3, "u32").shape),
+              tuple(ck.for_pack(none, 7, 3, "u32").shape),
+              tuple(ck.delta_pack(none, torch.zeros(32, dtype=torch.uint32, device="cuda"),
+                                  3, "u32").shape)]
+    if shapes != [(0, 96)] * 3 or ck.LAUNCHES != before:
+        raise AssertionError(f"B=0 encode gave shapes {shapes}, launches {ck.LAUNCHES}")
+    # the package's public names are the kernel wrappers: on CUDA tensors
+    # they launch the kernels, not the plain versions
+    probe = torch.from_numpy(values_rng.integers(0, 8, size=(CHECK_BLOCKS, layout.BLOCK),
+                                                 dtype=np.uint32)).cuda()
+    packed = fastlanes_tpu_torch.pack(probe, 3, "u32")
+    back = fastlanes_tpu_torch.unpack(packed, 3, "u32")
+    torch.cuda.synchronize()
+    if not (ck.LAUNCHES["pack"] == before["pack"] + 1
+            and ck.LAUNCHES["unpack"] == before["unpack"] + 1 and same(back, probe)):
+        raise AssertionError("fastlanes_tpu_torch.pack / .unpack did not launch the kernels")
     emit({"phase": "kernels", "tolerance": 0, "blocks": CHECK_BLOCKS,
           "cases": cases, "max_abs_err": worst})
     return worst
@@ -214,12 +261,12 @@ def read_and_check(path: str, device) -> dict:
     return {"values": int(n), "dtype": str(host.dtype), "read_seconds": seconds}
 
 
-def phase_read(rng, tmp: str, device=None, scale: int = 1) -> dict:
-    """The main path: write every column, then read each on the device with
-    the launch counts reset just before and read just after."""
+def phase_read(columns: dict, tmp: str, device=None) -> dict:
+    """The read path: write every column of `make_columns`, then read each on
+    the device with the launch counts reset just before and read just after."""
     paths, report = {}, {}
     t0 = time.perf_counter()
-    for name, (values, codec, expect) in make_columns(rng, scale).items():
+    for name, (values, codec, expect) in columns.items():
         path = os.path.join(tmp, name + ".flt")
         header = fio.write_file(path, values, codec=codec)
         codecs = {c["codec"] for c in header["chunks"]}
@@ -258,27 +305,183 @@ def phase_read(rng, tmp: str, device=None, scale: int = 1) -> dict:
     return {"paths": paths, "launches": launches}
 
 
-def record_largest_launches(paths) -> dict:
-    """Read the columns once more and keep, per kernel, the arguments of the
-    largest launch the reads made: the shapes the main path gives a kernel."""
-    seen = {}
-    real = ck._launch
+class largest_launches:
+    """While active, keeps per kernel the arguments of the largest launch
+    made: the shapes a path gives a kernel. `seen[name]` holds the source
+    tensor, base, reference, width and dtype of that launch."""
 
-    def spy(name, packed2d, base, reference, width, dtype):
-        size = packed2d.shape[0] * layout.BLOCK * packed2d.element_size()
-        if name not in seen or size > seen[name]["out_bytes"]:
-            seen[name] = {"packed": packed2d, "base": base, "reference": reference,
-                          "width": width, "dtype": dtype, "out_bytes": size}
-        return real(name, packed2d, base, reference, width, dtype)
+    def __init__(self):
+        self.seen = {}
 
-    ck._launch = spy
-    try:
-        for path in paths:
-            fio_device.read_file_device(path)
-    finally:
-        ck._launch = real
-    torch.cuda.synchronize()
-    return seen
+    def __enter__(self):
+        self.real = ck._launch
+
+        def spy(name, src2d, base, reference, width, dtype):
+            size = src2d.numel() * src2d.element_size()
+            if name not in self.seen or size > self.seen[name]["src_bytes"]:
+                self.seen[name] = {"src": src2d, "base": base, "reference": reference,
+                                   "width": width, "dtype": dtype, "src_bytes": size}
+            return self.real(name, src2d, base, reference, width, dtype)
+
+        ck._launch = spy
+        return self.seen
+
+    def __exit__(self, *exc):
+        ck._launch = self.real
+        return False
+
+
+# ---------------------------------------------------------------------------
+# the encode path
+
+
+#: column -> the entry the encode phase drives it through: the codec class
+#: (width from the device max probe), `get_codec`, or `auto_encode`
+ENCODE_COLUMNS = {
+    "headline_u32_w3": "BitPackedCodec", "ffor_u32": "auto_encode",
+    "delta_u32": "auto_encode", "zdelta_u32": "auto_encode", "rle_u32": "auto_encode",
+    "dict_u32": "auto_encode", "timestamps_u64": "auto_encode",
+    "small_u16": "get_codec", "small_u8": "get_codec",
+}
+
+_DTYPE_OF = {v: k for k, v in eng.UNSIGNED.items()}
+
+
+def encoder_of(how: str, dtype: str):
+    if how == "auto_encode":
+        return lambda values: codecs.auto_encode(values, dtype, device=values.device)
+    codec = (codecs.BitPackedCodec(dtype) if how == "BitPackedCodec"
+             else codecs.get_codec("bitpack", dtype))
+    return lambda values: codec.encode(values, device=values.device)
+
+
+def oracle_check(name: str, enc, blocks: np.ndarray, lo: int) -> None:
+    """The payload and params of blocks [lo, lo + len(blocks)) of `enc`
+    against the NumPy oracle run on the host over those blocks."""
+    dt, w = enc.dtype, enc.width
+    hi = lo + blocks.shape[0]
+    payload = enc.payload[lo:hi].cpu().numpy()
+
+    def host(key, a=None, b=None):
+        return enc.params[key][a:b].cpu().numpy()
+
+    if enc.codec == "bitpack":
+        want = npref.pack(blocks, w, dt)
+    elif enc.codec == "ffor":
+        want = npref.for_pack(blocks, enc.params["reference"], w, dt)
+    elif enc.codec in ("delta", "zdelta"):
+        _, base, deltas = fio._delta_parts(blocks, dt)
+        if enc.codec == "zdelta":
+            deltas = fio._zigzag_deltas(deltas)
+        want = npref.pack(deltas, w, dt)
+        if not np.array_equal(host("base", lo, hi), base):
+            raise AssertionError(f"{name}: base of blocks [{lo}, {hi}) differs from the oracle")
+    elif enc.codec == "rle":
+        counts, run_values, idx = fio._rle_parts(blocks)
+        _, base, deltas = fio._delta_parts(idx, "u16")
+        want = npref.pack(deltas, 1, "u16")
+        all_counts = host("counts")
+        start = int(all_counts[:lo].sum())
+        ok = (np.array_equal(all_counts[lo:hi], counts)
+              and np.array_equal(host("base", lo, hi), base)
+              and np.array_equal(host("run_values", start, start + run_values.size),
+                                 run_values))
+        if not ok:
+            raise AssertionError(f"{name}: rle params of blocks [{lo}, {hi}) differ")
+    elif enc.codec == "dict":
+        dictionary = host("dictionary")
+        found = np.searchsorted(dictionary, blocks)
+        if not (np.all(np.diff(dictionary.astype(np.float64)) > 0)
+                and np.array_equal(dictionary[np.minimum(found, dictionary.size - 1)], blocks)):
+            raise AssertionError(f"{name}: dictionary is not the sorted distinct values")
+        want = npref.pack(found.astype(np.uint16), w, "u16")
+    else:
+        raise AssertionError(f"{name}: unexpected codec {enc.codec}")
+    if payload.dtype != want.dtype or not np.array_equal(payload, want):
+        raise AssertionError(f"{name}: payload of blocks [{lo}, {hi}) differs from the oracle")
+
+
+def phase_encode(columns: dict, device=None) -> dict:
+    """The encode path: each column, moved to the card once, through its
+    codec class; launch counts reset just before and read just after. Every
+    Encoded is decoded by its codec and compared bit for bit with the input."""
+    device = eng.resolve_device(device)
+    on_card = device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    dev, report = {}, {}
+    for name in ENCODE_COLUMNS:
+        values = columns[name][0]
+        dev[name] = torch.from_numpy(values.reshape(-1, layout.BLOCK)).to(device)
+    sync()
+
+    ck.reset_launches()
+    encoded = {}
+    t0 = time.perf_counter()
+    with largest_launches() as seen:
+        for name, how in ENCODE_COLUMNS.items():
+            values = dev[name]
+            dtype = _DTYPE_OF[values.dtype]
+            before = dict(ck.LAUNCHES)
+            t1 = time.perf_counter()
+            enc = encoder_of(how, dtype)(values)
+            sync()
+            seconds = time.perf_counter() - t1
+            encoded[name] = enc
+            report[name] = {
+                "dtype": dtype, "blocks": enc.n_blocks, "codec": enc.codec,
+                "width": enc.width, "packed_bytes": enc.packed_bytes,
+                "ratio": enc.compression_ratio, "encode_seconds": seconds,
+                "launches": {k: v - before[k] for k, v in ck.LAUNCHES.items()
+                             if v != before[k]}}
+    launches = dict(ck.LAUNCHES)
+    encode_seconds = time.perf_counter() - t0
+
+    for name, how in ENCODE_COLUMNS.items():
+        values, enc = dev[name], encoded[name]
+        _, _, expect = columns[name]
+        if enc.payload.device != values.device:
+            raise AssertionError(f"{name}: payload lies on {enc.payload.device}")
+        if how == "auto_encode":
+            if expect is not None and {enc.codec} != expect:
+                raise AssertionError(f"{name}: auto_encode chose {enc.codec}, meant {expect}")
+            cost = codecs.auto_costs(values, enc.dtype, device=values.device)[enc.codec]
+            if enc.packed_bytes != cost:
+                raise AssertionError(f"{name}: packed_bytes {enc.packed_bytes} != "
+                                     f"auto_costs' {cost}")
+        elif enc.codec != "bitpack":
+            raise AssertionError(f"{name}: {enc.codec}")
+        back = codecs.get_codec(enc.codec, enc.dtype).decode(enc)
+        sync()
+        if not same(back, values):
+            raise AssertionError(f"{name}: decode(encode(values)) differs from the values")
+        del back
+        n = min(ORACLE_BLOCKS, enc.n_blocks)
+        host = columns[name][0].reshape(-1, layout.BLOCK)
+        oracle_check(name, enc, host[:n], 0)
+        oracle_check(name, enc, host[enc.n_blocks - n:], enc.n_blocks - n)
+    want_w = int(columns["headline_u32_w3"][0].max()).bit_length()
+    if encoded["headline_u32_w3"].width != want_w:
+        raise AssertionError(f"headline width {encoded['headline_u32_w3'].width}, "
+                             f"meant {want_w}")
+    # random access into the headline payload, on the device
+    idx = np.array([0, 1, 517, 1023])
+    got = codecs.BitPackedCodec("u32").decode_single(encoded["headline_u32_w3"], idx)
+    # (indexed on the signed view: the unsigned dtypes have no index kernel)
+    want = eng.from_vec(eng.take_cols(eng.to_vec(dev["headline_u32_w3"], "u32"),
+                                      torch.from_numpy(idx).to(device), "u32"), "u32")
+    if not same(got, want):
+        raise AssertionError("decode_single differs from the values")
+    emit({"phase": "encode", "tolerance": 0, "columns": report, "launches": launches,
+          "oracle_blocks_each_end": ORACLE_BLOCKS, "encode_seconds": encode_seconds})
+    return {"device_columns": dev, "launches": launches, "seen": seen}
+
+
+# ---------------------------------------------------------------------------
+# timing
 
 
 def time_cuda(fn, reps: int, inner: int = 1) -> float:
@@ -323,56 +526,115 @@ def device_busy_ms(fn):
     return sum(by_name.values()), {k[:60]: v for k, v in top}
 
 
-def phase_timing(paths: dict, launches: dict, worst: dict, smi: str) -> list:
+def wall_and_busy(fn, reps: int) -> dict:
+    """End-to-end time of `fn` (which ends in a synchronise): median wall ms
+    of `reps` calls after one warm-up, the profiler's device-busy ms of one
+    more, and the share of the wall time the device sat idle."""
+    fn()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = statistics.median(walls)
+    busy, by_name = device_busy_ms(fn)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "device_ms_by_name": by_name,
+            "host_share": None if busy is None else max(0.0, 1.0 - busy / wall_ms)}
+
+
+def kernel_row(name, rec, launches, worst, smi) -> dict:
+    """Time kernel `name` at the launch `rec` (the largest its path made),
+    beside its plain version, a device copy of the same size and its bound."""
+    dtype, width, src = rec["dtype"], rec["width"], rec["src"]
+    param = rec["reference"] if name in ("unfor_pack", "for_pack") else rec["base"]
+    got = call_kernel(name, src, param, width, dtype)
+    want = call_kernel(name, src, param, width, dtype, plain=True)
+    err = max(worst[name], max_abs_err(got, want))
+    if err != 0.0:
+        raise AssertionError(f"kernel {name} disagrees with its plain version "
+                             f"at the main path's shape: max_abs_err={err}")
+    del want
+    # the copy yardstick: a clone of the larger side (the values)
+    values_side = src if name in ENCODE_KERNELS else got
+    values_bytes = values_side.numel() * values_side.element_size()
+    copy_ms = time_cuda(lambda: torch.clone(values_side), 10, inner=10)
+    ms = time_cuda(lambda: call_kernel(name, src, param, width, dtype), 10, inner=10)
+    plain_ms = time_cuda(
+        lambda: call_kernel(name, src, param, width, dtype, plain=True), 3)
+    n_blocks = src.shape[0]
+    # where the main path's launches are small (ffor decodes chunk by
+    # chunk), also the kernel's time with its launch cost spread thin
+    large_ms = None
+    if n_blocks < LARGE_BLOCKS:
+        reps = LARGE_BLOCKS // n_blocks
+        big = src.repeat(reps, 1)
+        big_param = param.repeat(reps, 1) if getattr(param, "ndim", 0) == 2 else param
+        large_ms = time_cuda(lambda: call_kernel(name, big, big_param, width, dtype), 10,
+                             inner=10)
+        del big, big_param
+    moved = rec["src_bytes"] + got.numel() * got.element_size()
+    if rec["base"] is not None:
+        moved += rec["base"].numel() * rec["base"].element_size()
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_blocks * layout.BLOCK * OPS_PER_VALUE[name] / INT_OPS_PER_S * 1e3
+    copy_rate = 2 * values_bytes / (copy_ms * 1e-3)
+    return {
+        "name": name, "route": "cuda", "source": SOURCE, "replaces": KERNELS[name],
+        "launches": launches[name], "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+        "shape": {"dtype": dtype, "width": width, "blocks": n_blocks,
+                  "base": None if rec["base"] is None else list(rec["base"].shape)},
+        "bytes_moved": moved, "operations_bound_ms": ops_ms,
+        "achieved_GBps": moved / (ms * 1e-3) / 1e9,
+        "copy_ms": copy_ms, "copy_GBps": copy_rate / 1e9,
+        "bound_at_copy_rate_ms": moved / copy_rate * 1e3,
+        "ms_at_%d_blocks" % LARGE_BLOCKS: large_ms, "card": smi,
+    }
+
+
+def host_encode_costs(dev: dict) -> dict:
+    """What the codecs' host round trips cost: one scalar pull of a width
+    probe (beside the device time of its reduction), and for rle / dict the
+    copy back to the host and the numpy run / distinct-value detection."""
+    def wall_ms(fn, reps=3):
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    head = dev["headline_u32_w3"]
+    vec = eng.to_vec(head, "u32")
+    out = {"max_probe_2^27_u32": {
+        "wall_ms": wall_ms(lambda: codecs._device_max(head, "u32"), 5),
+        "device_ms": time_cuda(lambda: (vec ^ -(1 << 31)).max(), 5, inner=5)}}
+    for name, parts in (("rle_u32", fio._rle_parts), ("dict_u32", fio._dict_parts)):
+        values = dev[name]
+        host = values.cpu().numpy()
+        out[name] = {"copy_back_ms": wall_ms(lambda: values.cpu().numpy(), 2),
+                     "host_numpy_ms": wall_ms(lambda: parts(host), 1)}
+    return out
+
+
+def phase_timing(paths: dict, read_launches: dict, encode_state: dict, worst: dict,
+                 smi: str) -> list:
     timed_columns = ["headline_u32_w3", "ffor_u32", "delta_u32", "zdelta_u32"]
-    seen = record_largest_launches([paths[c] for c in timed_columns])
-    rows = []
-    for name, replaces in KERNELS.items():
-        rec = seen[name]
-        dtype, width, packed = rec["dtype"], rec["width"], rec["packed"]
-        param = rec["reference"] if name == "unfor_pack" else rec["base"]
-        got = call_kernel(name, packed, param, width, dtype)
-        want = call_kernel(name, packed, param, width, dtype, plain=True)
-        err = max(worst[name], max_abs_err(got, want))
-        if err != 0.0:
-            raise AssertionError(f"kernel {name} disagrees with its plain version "
-                                 f"at the main path's shape: max_abs_err={err}")
-        copy_ms = time_cuda(lambda: torch.clone(got), 10, inner=10)
-        del want
-        ms = time_cuda(lambda: call_kernel(name, packed, param, width, dtype), 10, inner=10)
-        plain_ms = time_cuda(
-            lambda: call_kernel(name, packed, param, width, dtype, plain=True), 3)
-        n_blocks = packed.shape[0]
-        # where the main path's launches are small (ffor decodes chunk by
-        # chunk), also the kernel's time with its launch cost spread thin
-        large_ms = None
-        if n_blocks < LARGE_BLOCKS:
-            reps = LARGE_BLOCKS // n_blocks
-            big = packed.repeat(reps, 1)
-            big_param = param.repeat(reps, 1) if getattr(param, "ndim", 0) == 2 else param
-            large_ms = time_cuda(lambda: call_kernel(name, big, big_param, width, dtype), 10,
-                                 inner=10)
-            del big, big_param
-        moved = packed.numel() * packed.element_size() + rec["out_bytes"]
-        if rec["base"] is not None:
-            moved += rec["base"].numel() * rec["base"].element_size()
-        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-        ops_ms = n_blocks * layout.BLOCK * OPS_PER_VALUE[name] / INT_OPS_PER_S * 1e3
-        copy_rate = 2 * rec["out_bytes"] / (copy_ms * 1e-3)
-        rows.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None,
-            "shape": {"dtype": dtype, "width": width, "blocks": n_blocks,
-                      "base": None if rec["base"] is None else list(rec["base"].shape)},
-            "bytes_moved": moved, "achieved_GBps": moved / (ms * 1e-3) / 1e9,
-            "copy_ms": copy_ms, "copy_GBps": copy_rate / 1e9,
-            "bound_at_copy_rate_ms": moved / copy_rate * 1e3,
-            "ms_at_%d_blocks" % LARGE_BLOCKS: large_ms, "card": smi,
-        })
-        del got
+    with largest_launches() as seen:
+        for column in timed_columns:
+            fio_device.read_file_device(paths[column])
+    torch.cuda.synchronize()
+    rows = [kernel_row(name, seen[name], read_launches, worst, smi)
+            for name in DECODE_KERNELS]
+    seen.clear()
+    rows += [kernel_row(name, encode_state["seen"][name], encode_state["launches"],
+                        worst, smi) for name in ENCODE_KERNELS]
+    encode_state["seen"].clear()
+
     reads = {}
     for column in timed_columns:
         path = paths[column]
@@ -381,20 +643,25 @@ def phase_timing(paths: dict, launches: dict, worst: dict, smi: str) -> list:
             fio_device.read_file_device(path)
             torch.cuda.synchronize()
 
-        read()
-        walls = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            read()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        wall_ms = statistics.median(walls)
-        busy, by_name = device_busy_ms(read)
-        reads[column] = {
-            "wall_ms": wall_ms, "device_busy_ms": busy, "device_ms_by_name": by_name,
-            "host_share": None if busy is None else max(0.0, 1.0 - busy / wall_ms),
-            "values": fio.read_header(path)["n_values"],
-            "file_bytes": os.path.getsize(path)}
-    emit({"phase": "timing", "card": smi, "reads": reads})
+        reads[column] = wall_and_busy(read, 3)
+        reads[column].update(values=fio.read_header(path)["n_values"],
+                             file_bytes=os.path.getsize(path))
+
+    dev = encode_state["device_columns"]
+    encodes = {}
+    for column, how in ENCODE_COLUMNS.items():
+        values = dev[column]
+        encoder = encoder_of(how, _DTYPE_OF[values.dtype])
+
+        def encode():
+            encoder(values)
+            torch.cuda.synchronize()
+
+        # rle and dict encode spend seconds in host numpy: one timed run
+        encodes[column] = wall_and_busy(encode, 1 if column in ("rle_u32", "dict_u32") else 3)
+        encodes[column].update(values=values.numel(), how=how)
+    emit({"phase": "timing", "card": smi, "reads": reads, "encodes": encodes,
+          "host_round_trips": host_encode_costs(dev)})
     return rows
 
 
@@ -408,13 +675,19 @@ def main() -> int:
     info = phase_device()
     phase_build()
     worst = phase_kernels(rng)
+    columns = make_columns(rng, 1)
     with tempfile.TemporaryDirectory(prefix="fastlanes_smoke_") as tmp:
-        state = phase_read(rng, tmp)
-        missing = [k for k in KERNELS if state["launches"][k] == 0]
+        read_state = phase_read(columns, tmp)
+        missing = [k for k in DECODE_KERNELS if read_state["launches"][k] == 0]
         if missing:
             raise AssertionError(f"the reads launched no {missing} kernel")
-        rows = phase_timing(state["paths"], state["launches"], worst,
-                            info["nvidia_smi"])
+        encode_state = phase_encode(columns)
+        missing = [k for k in ENCODE_KERNELS if encode_state["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"the encodes launched no {missing} kernel")
+        del columns
+        rows = phase_timing(read_state["paths"], read_state["launches"], encode_state,
+                            worst, info["nvidia_smi"])
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})

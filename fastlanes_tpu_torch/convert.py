@@ -9,6 +9,10 @@ unsigned torch tensor (signed after a zigzag/viewu transform). Both
 functions take and return numpy arrays on the reference's side, never a
 `jax.Array`: callers convert with `np.asarray` first. An FLT file needs no
 conversion, since both packages read the same bytes.
+
+`encoded_from_reference` / `encoded_to_reference` carry a whole `Encoded` of
+the codec classes (models/codecs.py) across, so that either package decodes
+what the other encoded.
 """
 
 from __future__ import annotations
@@ -59,3 +63,70 @@ def to_reference(tensor: torch.Tensor, dtype, form: str = "native") -> np.ndarra
             raise ValueError("form='limbs' is the u64 limb image")
         return arr.view(np.uint32).reshape(*arr.shape, 2)
     raise ValueError(f"unknown form {form!r}")
+
+
+def _wire_dtype(codec: str, dtype: str) -> str:
+    """Wire dtype of the payload and base of a codec's Encoded: rle's run
+    index and dict's codes ride a u16 stream whatever the column dtype."""
+    return "u16" if codec in ("rle", "dict") else dtype
+
+
+def _param_dtype(key: str, codec: str, dtype: str):
+    """FastLanes dtype of an array param's elements (None: the int64 run
+    counts, carried as they are)."""
+    if key == "base":
+        return _wire_dtype(codec, dtype)
+    if key in ("run_values", "dictionary"):
+        return dtype
+    return None
+
+
+def encoded_from_reference(enc, device=None):
+    """An `Encoded` of the JAX package, its fields as numpy arrays (anything
+    with `codec`, `dtype`, `width`, `n_blocks`, `payload` and `params`; u64
+    payloads and bases as `uint64` or as the limb image), -> the port's
+    `Encoded` with payload and array params on `device`."""
+    from .models.codecs import Encoded
+
+    dtype = layout.canon_dtype(enc.dtype)
+    device = eng.resolve_device(device)
+    payload = from_reference(np.asarray(enc.payload), _wire_dtype(enc.codec, dtype), device)
+    params = None
+    if enc.params is not None:
+        params = {}
+        for key, val in enc.params.items():
+            if isinstance(val, (int, np.integer)):
+                params[key] = int(val)
+                continue
+            pdt = _param_dtype(key, enc.codec, dtype)
+            arr = np.asarray(val)
+            params[key] = (torch.from_numpy(arr.copy()).to(device) if pdt is None
+                           else from_reference(arr, pdt, device))
+    return Encoded(enc.codec, dtype, int(enc.width), int(enc.n_blocks), payload, params)
+
+
+def encoded_to_reference(enc, form: str = "native") -> dict:
+    """The port's `Encoded` -> the fields of the JAX package's `Encoded` as a
+    dict of numpy arrays and ints (`Encoded(**fields)` there). `form='limbs'`
+    gives u64 payloads and bases as the `(..., 2)` uint32 limb image, the
+    form the JAX package computes in without x64; run values and the
+    dictionary stay `uint64`, as its host-side encoders leave them."""
+    def out(tensor, dt, limbs_ok=True):
+        use = form if (dt == "u64" and limbs_ok) else "native"
+        return to_reference(tensor, dt, form=use)
+
+    dtype = layout.canon_dtype(enc.dtype)
+    params = None
+    if enc.params is not None:
+        params = {}
+        for key, val in enc.params.items():
+            if not isinstance(val, torch.Tensor):
+                params[key] = val
+                continue
+            pdt = _param_dtype(key, enc.codec, dtype)
+            params[key] = (val.detach().cpu().numpy() if pdt is None
+                           else out(val, pdt, limbs_ok=key == "base"))
+    return {"codec": enc.codec, "dtype": dtype, "width": enc.width,
+            "n_blocks": enc.n_blocks,
+            "payload": out(enc.payload, _wire_dtype(enc.codec, dtype)),
+            "params": params}

@@ -144,11 +144,9 @@ def _group_sig(meta):
 def _gather_flat(values_np: np.ndarray, idx: torch.Tensor, offsets: np.ndarray,
                  dtype: str, device):
     """out[b, i] = values[offsets[b] + idx[b, i]]: one device gather from a
-    flat value stream. The gather runs on the signed bit pattern (torch's
-    unsigned dtypes have no index kernels on every backend)."""
-    flat_idx = idx.to(torch.int64) + _to_device(offsets.astype(np.int64), device)[:, None]
-    table = eng.to_vec(_to_device(values_np, device), dtype)
-    return eng.from_vec(torch.take(table, flat_idx), dtype)
+    flat host value stream (see ops/_engine.take_flat)."""
+    return eng.take_flat(_to_device(values_np, device), idx,
+                         _to_device(offsets.astype(np.int64), device), dtype)
 
 
 def _decode_dict_batched(run, dtype, device):

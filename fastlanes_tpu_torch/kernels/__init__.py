@@ -4,6 +4,11 @@ order as the ops layer; a CPU tensor takes the plain PyTorch version."""
 from . import cuda_codecs
 from .cuda_codecs import (
     LAUNCHES,
+    delta_pack,
+    delta_pack_orig,
+    for_pack,
+    pack,
+    pack_map,
     undelta_pack,
     undelta_pack_orig,
     unfor_pack,
@@ -14,6 +19,7 @@ from .cuda_codecs import (
 )
 
 __all__ = [
-    "cuda_codecs", "LAUNCHES", "unpack", "unfor_pack", "undelta_pack",
-    "unzdelta_pack", "unpack_orig", "undelta_pack_orig", "unzdelta_pack_orig",
+    "cuda_codecs", "LAUNCHES", "pack", "pack_map", "unpack", "unfor_pack",
+    "undelta_pack", "unzdelta_pack", "delta_pack", "for_pack", "unpack_orig",
+    "undelta_pack_orig", "unzdelta_pack_orig", "delta_pack_orig",
 ]

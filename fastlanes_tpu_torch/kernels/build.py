@@ -87,11 +87,12 @@ def load():
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            lib.fl_decode.argtypes = [
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_longlong,
-                ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
-            lib.fl_decode.restype = ctypes.c_int
+            for entry in (lib.fl_decode, lib.fl_encode):
+                entry.argtypes = [
+                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_longlong,
+                    ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+                entry.restype = ctypes.c_int
             lib.fl_error_string.argtypes = [ctypes.c_int]
             lib.fl_error_string.restype = ctypes.c_char_p
             _lib = lib

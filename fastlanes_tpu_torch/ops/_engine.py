@@ -10,7 +10,12 @@ is arithmetic, so `shr` masks the copied sign bits off after every shift.
 
 All shift amounts and masks are Python constants (the row loop is unrolled
 like the reference's `seq_t!`), and shifts are always called with
-0 <= k < T (reference src/macros.rs:74-93 / 142-165).
+0 <= k < T (reference src/macros.rs:74-93 / 142-165). The `*_dyn` variants
+used by unpack_single take a tensor of shift amounts.
+
+Order is the one thing a signed view gets wrong: a value at or above
+2^(T-1) is negative there. `umax`/`umin` flip the top bit before the signed
+reduction, which maps the unsigned order onto the signed one.
 """
 
 from __future__ import annotations
@@ -166,3 +171,61 @@ def cols(x, start: int, n: int, dtype):
 
 def concat_cols(pieces, dtype):
     return torch.cat(pieces, dim=-1)
+
+
+def take_cols(x, idx, dtype):
+    """Gather columns of the last axis by an integer index tensor."""
+    return torch.index_select(x, -1, idx)
+
+
+def take_flat(table, idx, offsets, dtype):
+    """out[b, i] = table[offsets[b] + idx[b, i]]: one gather from a flat
+    value stream (rle run values, dict entries). The gather runs on the
+    signed bit pattern (torch's unsigned dtypes have no index kernels on
+    every backend)."""
+    flat_idx = idx.to(torch.int64) + offsets.to(torch.int64)[:, None]
+    return from_vec(torch.take(to_vec(table, dtype), flat_idx), dtype)
+
+
+# ---------------------------------------------------------------------------
+# dynamic-shift ops (k is an integer tensor; used by unpack_single)
+
+
+def shr_dyn(x, k, dtype):
+    """Logical right shift by a tensor of amounts k in [0, T): arithmetic
+    shift, then a mask of the low T-k bits (built without a shift by T)."""
+    t = layout.bit_width(dtype)
+    k = k.to(x.dtype)
+    low = torch.full_like(k, (1 << (t - 1)) - 1) >> (k - 1).clamp(min=0)
+    return torch.where(k == 0, x, (x >> k.clamp(max=t - 1)) & low)
+
+
+def shl_dyn(x, k, dtype):
+    """Left shift by a tensor of amounts k in [0, T]; 0 where k >= T."""
+    t = layout.bit_width(dtype)
+    k = k.to(x.dtype)
+    return torch.where(k >= t, torch.zeros_like(x), x << k.clamp(max=t - 1))
+
+
+def where(cond, x, y, dtype):
+    return torch.where(cond, x, y)
+
+
+# ---------------------------------------------------------------------------
+# unsigned order over the signed bit pattern
+
+
+def _sign_bit(dtype) -> int:
+    return -(1 << (layout.bit_width(dtype) - 1))
+
+
+def umax(vec, dtype) -> int:
+    """Largest value of `vec` in UNSIGNED order, as a Python int in
+    [0, 2^T) (a u64 maximum does not fit an int64 scalar). One scalar
+    leaves the device."""
+    return int((vec ^ _sign_bit(dtype)).max()) - _sign_bit(dtype)
+
+
+def umin(vec, dtype) -> int:
+    """Smallest value of `vec` in unsigned order, as a Python int."""
+    return int((vec ^ _sign_bit(dtype)).min()) - _sign_bit(dtype)

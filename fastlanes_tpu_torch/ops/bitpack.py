@@ -1,7 +1,7 @@
 """torch bit-packing ops: batched, plain PyTorch (CPU or CUDA tensors).
 
-The decode half of fastlanes_tpu/ops/bitpack.py (reference src/macros.rs
-101-174 driven by src/bitpacking.rs:98-106):
+The counterpart of fastlanes_tpu/ops/bitpack.py (reference src/macros.rs
+35-98 / 101-174 driven by src/bitpacking.rs:65-106):
 
   * the per-lane loop of the reference becomes the vector axis: every op
     below acts on (B, LANES) slabs;
@@ -11,10 +11,11 @@ The decode half of fastlanes_tpu/ops/bitpack.py (reference src/macros.rs
     flat block (core/layout.py), so there are no gathers, only static column
     slices and one concatenation.
 
-The kernel-body hook of the reference macro (`|$idx, $elem|`) survives as the
-`unpack_row_stream` generator, which delta.py and ffor.py compose into fused
-decoders like delta.rs:48-63 / ffor.rs:38-50. These functions are the plain
-versions that the CUDA kernels in kernels/cuda_codecs.py are held against.
+The kernel-body hooks of the reference macros (`|$idx, $elem|`) survive as
+`pack_words` (over a row function) and the `unpack_row_stream` generator,
+which delta.py and ffor.py compose into fused encoders and decoders like
+delta.rs:25-63 / ffor.rs:24-50. These functions are the plain versions that
+the CUDA kernels in kernels/cuda_codecs.py are held against.
 """
 
 from __future__ import annotations
@@ -28,6 +29,53 @@ def _mask_bits(width_bits: int, t: int) -> int:
     if width_bits == t:
         return (1 << t) - 1
     return (1 << (width_bits % t)) - 1
+
+
+def pack_words(row_fn, width: int, dtype):
+    """Run the pack loop over a row stream; returns the list of W word vecs.
+
+    `row_fn(row)` returns the (B, LANES) vec of transposed row `row`, masked
+    or not: masking to W bits happens here (macros.rs:74-76). Rows are asked
+    for in order, once each, so a stateful `row_fn` (the delta hook) works.
+    Mirrors reference macros.rs:35-98.
+    """
+    dtype = layout.canon_dtype(dtype)
+    t = layout.bit_width(dtype)
+    layout.check_width(dtype, width)
+
+    if width == 0:
+        return []
+    if width == t:
+        # W == T: straight copy in row order (macros.rs:54-59)
+        return [row_fn(row) for row in range(t)]
+
+    mask = (1 << width) - 1
+    words = []
+    tmp = None
+    for row in range(t):
+        src = eng.and_const(row_fn(row), mask, dtype)
+        shift = (row * width) % t
+        if row == 0:
+            tmp = src
+        else:
+            tmp = eng.orr(tmp, eng.shl(src, shift, dtype), dtype)
+        curr_word = (row * width) // t
+        next_word = ((row + 1) * width) // t
+        if next_word > curr_word:
+            words.append(tmp)
+            remaining = ((row + 1) * width) % t
+            # carry bits that did not fit (macros.rs:89-93); width-remaining < T
+            tmp = eng.shr(src, width - remaining, dtype)
+    assert len(words) == width
+    return words
+
+
+def words_to_packed(words, vec, dtype):
+    """The W word vecs of `pack_words` as one (B, plen) vec; `(B, 0)` for
+    W == 0 (`vec` is the (B, 1024) input, for the batch size and device)."""
+    if not words:
+        return eng.zeros((vec.shape[0], 0), dtype, vec.device)
+    return eng.concat_cols(words, dtype)
 
 
 def unpack_row_stream(packed_vec, width: int, dtype):
@@ -97,6 +145,41 @@ def block_rows(values_vec, dtype):
     nl = layout.lanes(dtype)
     for row in range(layout.bit_width(dtype)):
         yield row, eng.cols(values_vec, layout.row_offset(row), nl, dtype)
+
+
+def _row_fn_of(values_vec, dtype):
+    nl = layout.lanes(dtype)
+    return lambda row: eng.cols(values_vec, layout.row_offset(row), nl, dtype)
+
+
+def check_values(vec):
+    if vec.shape[-1] != layout.BLOCK:
+        raise ValueError(
+            f"values must have shape (..., {layout.BLOCK}), got {tuple(vec.shape)}")
+
+
+def pack(values, width: int, dtype):
+    """BitPacking::pack, batched: (B, 1024) -> (B, 1024*W//T).
+
+    W=0 gives `(B, 0)` and W=T the row-order copy; both fall out of
+    `pack_words`. For u64 pass uint64 or the (..., 2) uint32 limb image; the
+    result is always the native unsigned tensor."""
+    return pack_map(None, values, width, dtype)
+
+
+def pack_map(fn, values, width: int, dtype):
+    """pack(fn(values)) with `fn` applied per transposed row slice: the
+    fused-encode entry. `fn` is elementwise on a (B, LANES) signed-pattern
+    vec of the dtype's width and returns one (None: plain pack).
+    `delta_pack` / `for_pack` are its specialised forms (reference
+    delta.rs:25-33, ffor.rs:24-35)."""
+    dtype = layout.canon_dtype(dtype)
+    vec, had_batch = eng.promote_shape(eng.to_vec(values, dtype))
+    check_values(vec)
+    base_row = _row_fn_of(vec, dtype)
+    row_fn = base_row if fn is None else (lambda row: fn(base_row(row)))
+    out = words_to_packed(pack_words(row_fn, width, dtype), vec, dtype)
+    return eng.from_vec(eng.squeeze_shape(out, had_batch), dtype)
 
 
 def check_packed(vec, width: int, dtype):

@@ -1,5 +1,6 @@
-"""torch Delta decode: per-lane prefix sum over transposed blocks and the
-fused undelta_pack decoder (reference src/delta.rs:36-63).
+"""torch Delta codec: per-lane running delta and prefix sum over transposed
+blocks, with the fused delta_pack encoder and undelta_pack decoder
+(reference src/delta.rs:24-63).
 
 The per-lane sequential dependency of the reference (`prev` carried across
 the T rows of a lane) is preserved, while the lane axis and block axis are
@@ -9,7 +10,8 @@ from __future__ import annotations
 
 from ..core import layout
 from . import _engine as eng
-from .bitpack import assemble_blocks, block_rows, check_packed, unpack_row_stream
+from .bitpack import (_row_fn_of, assemble_blocks, block_rows, check_packed,
+                      check_values, pack_words, unpack_row_stream, words_to_packed)
 
 
 def base_vec(base, dtype, like):
@@ -26,6 +28,20 @@ def base_vec(base, dtype, like):
     if vec.device != like.device:
         raise ValueError(f"base lies on {vec.device}, the payload on {like.device}")
     return vec
+
+
+def delta(values, base, dtype):
+    """Delta::delta (delta.rs:24-33): out[idx] = next - prev, wrapping."""
+    dtype = layout.canon_dtype(dtype)
+    vec, had_batch = eng.promote_shape(eng.to_vec(values, dtype))
+    check_values(vec)
+    prev = base_vec(base, dtype, vec)
+    rows = {}
+    for row, nxt in block_rows(vec, dtype):
+        rows[row] = eng.sub(nxt, prev, dtype)
+        prev = nxt
+    out = eng.squeeze_shape(assemble_blocks(rows, dtype), had_batch)
+    return eng.from_vec(out, dtype)
 
 
 def undelta(deltas, base, dtype):
@@ -54,3 +70,23 @@ def undelta_pack(packed, base, width: int, dtype):
         rows[row] = prev
     out = eng.squeeze_shape(assemble_blocks(rows, dtype), had_batch)
     return eng.from_vec(out, dtype)
+
+
+def delta_pack(values, base, width: int, dtype):
+    """Fused encode: pack(delta(values, base)) in one pass (the composition
+    the reference leaves to callers, delta.rs:80-96). The state carried down
+    a lane is the previous row's unmasked value, not its delta."""
+    dtype = layout.canon_dtype(dtype)
+    vec, had_batch = eng.promote_shape(eng.to_vec(values, dtype))
+    check_values(vec)
+    prev = [base_vec(base, dtype, vec)]
+    row_src = _row_fn_of(vec, dtype)
+
+    def row_fn(row):
+        nxt = row_src(row)
+        out = eng.sub(nxt, prev[0], dtype)
+        prev[0] = nxt
+        return out
+
+    out = words_to_packed(pack_words(row_fn, width, dtype), vec, dtype)
+    return eng.from_vec(eng.squeeze_shape(out, had_batch), dtype)

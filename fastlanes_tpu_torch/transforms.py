@@ -47,6 +47,14 @@ def zigzag_encode(values: torch.Tensor) -> torch.Tensor:
     return out.view(_UNSIGNED[values.element_size()])
 
 
+def zigzag_unsigned(deltas: torch.Tensor) -> torch.Tensor:
+    """Wrapping unsigned deltas -> zigzag codes (fastlanes_tpu/ops/orig.py
+    `_zigzag_vec`): the same bits read as signed are the signed steps."""
+    if deltas.dtype not in _UNSIGNED.values():
+        raise ValueError(f"expected unsigned deltas, got {deltas.dtype}")
+    return zigzag_encode(deltas.view(_SIGNED[deltas.element_size()]))
+
+
 def zigzag_decode(codes: torch.Tensor) -> torch.Tensor:
     """torch twin: unsigned zigzag codes -> signed tensor of the same width."""
     if codes.dtype not in _UNSIGNED.values():

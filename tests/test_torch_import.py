@@ -36,7 +36,8 @@ def test_every_module_is_listed():
     for want in ("core.layout", "ref.numpy_ref", "transforms", "zonemaps", "alp",
                  "fio", "ops._engine", "ops.bitpack", "ops.ffor", "ops.delta",
                  "ops.transpose", "kernels.cuda_codecs", "kernels.build",
-                 "fio_device", "convert"):
+                 "fio_device", "convert", "ops.orig", "ops.single", "ops.dispatch",
+                 "models.codecs"):
         assert f"fastlanes_tpu_torch.{want}" in names
 
 
@@ -77,6 +78,45 @@ def test_lazy_api_names_resolve():
         assert getattr(fastlanes_tpu_torch, name) is not None
     with pytest.raises(AttributeError):
         fastlanes_tpu_torch.no_such_name
+
+
+def test_public_names_are_the_kernel_wrappers():
+    """The names with a CUDA kernel resolve to the wrappers of
+    kernels/cuda_codecs.py (kernel on a CUDA tensor, plain version on a CPU
+    tensor), never to the plain ops; the ops without a kernel stay in ops.*."""
+    from fastlanes_tpu_torch.kernels import cuda_codecs as ck
+    from fastlanes_tpu_torch.models import codecs
+    from fastlanes_tpu_torch.ops import bitpack, delta, dispatch, ffor, single, transpose
+
+    for name in ("pack", "pack_map", "unpack", "undelta_pack", "delta_pack", "for_pack",
+                 "unfor_pack"):
+        assert getattr(fastlanes_tpu_torch, name) is getattr(ck, name), name
+    for name, plain in (("pack", bitpack.pack), ("unpack", bitpack.unpack),
+                        ("undelta_pack", delta.undelta_pack),
+                        ("delta_pack", delta.delta_pack), ("for_pack", ffor.for_pack),
+                        ("unfor_pack", ffor.unfor_pack)):
+        assert getattr(fastlanes_tpu_torch, name) is not plain, name
+    for name in ("delta", "undelta"):
+        assert getattr(fastlanes_tpu_torch, name) is getattr(delta, name)
+    for name in ("transpose", "untranspose"):
+        assert getattr(fastlanes_tpu_torch, name) is getattr(transpose, name)
+    assert fastlanes_tpu_torch.unpack_single is single.unpack_single
+    for name in ("unchecked_pack", "unchecked_unpack", "unchecked_unpack_single"):
+        assert getattr(fastlanes_tpu_torch, name) is getattr(dispatch, name)
+    assert fastlanes_tpu_torch.auto_encode is codecs.auto_encode
+    assert fastlanes_tpu_torch.get_codec is codecs.get_codec
+    assert set(ck.LAUNCHES) == {"unpack", "unfor_pack", "undelta_pack", "unzdelta_pack",
+                                "pack", "delta_pack", "for_pack"}
+
+
+def test_public_codec_names_match_the_reference_package():
+    """Every codec name of the JAX package's public API that this slice
+    covers is a public name of the port."""
+    for name in ("pack", "pack_map", "unpack", "unpack_single", "delta", "undelta",
+                 "undelta_pack", "delta_pack", "for_pack", "unfor_pack", "transpose",
+                 "untranspose", "unchecked_pack", "unchecked_unpack",
+                 "unchecked_unpack_single", "auto_encode", "get_codec"):
+        assert name in fastlanes_tpu_torch.__all__, name
 
 
 def test_default_device_is_the_gpu_or_an_error(tmp_path):

@@ -68,6 +68,70 @@ def test_kernels_match_plain_and_oracle(card, dt, w):
     assert ck.LAUNCHES["unzdelta_pack"] == before["unzdelta_pack"] + 2
 
 
+@pytest.mark.parametrize("dt,w", CONFIGS)
+def test_encode_kernels_match_plain_and_oracle(card, dt, w):
+    """pack, delta_pack (per-block and shared base) and for_pack: values at
+    and above 2^(T-1), references at both ends."""
+    rng = np.random.default_rng(2000 * layout.bit_width(dt) + w)
+    t, nl, np_dt = layout.bit_width(dt), layout.lanes(dt), layout.np_dtype(dt)
+    vals = rng.integers(0, 1 << min(t, 63), size=(B, layout.BLOCK), dtype=np.uint64)
+    vals = (vals << np.uint64(t - min(t, 63)) | rng.integers(0, 2, size=vals.shape,
+                                                             dtype=np.uint64)).astype(np_dt)
+    bases = rng.integers(0, 1 << min(t, 63), size=(B, nl), dtype=np.uint64).astype(np_dt)
+    values, base = torch.from_numpy(vals).to(card), torch.from_numpy(bases).to(card)
+    before = dict(ck.LAUNCHES)
+    cases = [
+        ("pack", (values,), ref.pack(vals, w, dt)),
+        ("delta_pack", (values, base), ref.delta_pack(vals, bases, w, dt)),
+        ("delta_pack", (values, base[0].clone()),
+         ref.delta_pack(vals, np.broadcast_to(bases[0], bases.shape), w, dt)),
+        ("for_pack", (values, 0), ref.for_pack(vals, 0, w, dt)),
+        ("for_pack", (values, (1 << t) - 1), ref.for_pack(vals, (1 << t) - 1, w, dt)),
+    ]
+    for name, args, gold in cases:
+        got = getattr(ck, name)(*args, w, dt)
+        want = getattr(ck, name + "_plain")(*args, w, dt)
+        torch.cuda.synchronize()
+        assert got.is_cuda and got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(signed(got), signed(want)), (name, dt, w)
+        assert np.array_equal(got.cpu().numpy(), gold), (name, dt, w)
+    launched = 0 if w == 0 else 1  # W=0 has no output words: no launch
+    assert ck.LAUNCHES["pack"] == before["pack"] + launched
+    assert ck.LAUNCHES["delta_pack"] == before["delta_pack"] + 2 * launched
+    assert ck.LAUNCHES["for_pack"] == before["for_pack"] + 2 * launched
+
+
+@pytest.mark.parametrize("dt", layout.DTYPES)
+def test_delta_pack_orig_on_the_card(card, dt):
+    from fastlanes_tpu_torch.ops import orig as ops_orig
+
+    rng = np.random.default_rng(31)
+    t, np_dt = layout.bit_width(dt), layout.np_dtype(dt)
+    vals = np.sort(rng.integers(0, 1 << (t - 1), size=(B, layout.BLOCK),
+                                dtype=np.uint64).astype(np_dt), axis=1)
+    values = torch.from_numpy(vals).to(card)
+    for zigzag in (False, True):
+        for w in (0, t // 2, t):
+            packed, base = ck.delta_pack_orig(values, w, dt, zigzag=zigzag)
+            want_p, want_b = ops_orig.delta_pack_orig(values, w, dt, zigzag=zigzag)
+            assert torch.equal(signed(packed), signed(want_p))
+            assert torch.equal(signed(base), signed(want_b))
+            assert base.is_contiguous() and base.untyped_storage().nbytes() == base.nbytes
+
+
+def test_public_names_launch_the_kernels(card):
+    import fastlanes_tpu_torch as ft
+
+    values = torch.arange(2048, dtype=torch.int32, device=card).view(torch.uint32) \
+        .reshape(2, 1024)
+    before = dict(ck.LAUNCHES)
+    packed = ft.pack(values, 11, "u32")
+    back = ft.unpack(packed, 11, "u32")
+    assert torch.equal(signed(back), signed(values))
+    assert ck.LAUNCHES["pack"] == before["pack"] + 1
+    assert ck.LAUNCHES["unpack"] == before["unpack"] + 1
+
+
 def test_cuda_wrapper_rejects_mixed_devices(card):
     packed = torch.zeros((2, 96), dtype=torch.uint32, device=card)
     with pytest.raises(ValueError):
