@@ -30,7 +30,8 @@ from .core.layout import BLOCK, DTYPES, FL_ORDER, bit_width, lanes, packed_len
 __all__ = [
     "layout", "BLOCK", "DTYPES", "FL_ORDER", "bit_width", "lanes", "packed_len",
     "pack", "pack_map", "unpack", "unpack_single", "delta", "undelta",
-    "undelta_pack", "delta_pack", "for_pack", "unfor_pack", "transpose",
+    "undelta_pack", "delta_pack", "for_pack", "unfor_pack", "unpack_orig",
+    "undelta_pack_orig", "unzdelta_pack_orig", "delta_pack_orig", "transpose",
     "untranspose", "unchecked_pack", "unchecked_unpack",
     "unchecked_unpack_single", "auto_encode", "get_codec",
     "write_file", "read_file", "read_blocks", "read_single",
@@ -40,13 +41,14 @@ __all__ = [
 
 
 # name -> owning submodule for the lazy re-exports; only the owner is
-# imported. The seven names with a CUDA kernel resolve to the kernel wrappers
+# imported. The eleven names with a CUDA kernel resolve to the kernel wrappers
 # (CUDA tensor -> kernel or raise, CPU tensor -> plain version); the ops
 # without a kernel stay in ops.*.
 _API_HOME = {
     **{n: "kernels.cuda_codecs" for n in (
         "pack", "pack_map", "unpack", "undelta_pack", "delta_pack", "for_pack",
-        "unfor_pack")},
+        "unfor_pack", "unpack_orig", "undelta_pack_orig", "unzdelta_pack_orig",
+        "delta_pack_orig")},
     "unpack_single": "ops.single",
     **{n: "ops.delta" for n in ("delta", "undelta")},
     **{n: "ops.transpose" for n in ("transpose", "untranspose")},

@@ -28,6 +28,7 @@ from . import fio, transforms
 from .core import layout
 from .kernels import cuda_codecs as ck
 from .ops import _engine as eng
+from .ops import ffor as ops_ffor
 
 
 class NullableColumn:
@@ -53,14 +54,36 @@ class NullableColumn:
                 f"n_null={self.n_null})")
 
 
-def _to_device(arr: np.ndarray, device) -> torch.Tensor:
-    """Host buffer -> tensor on `device` (same dtype and bytes).
+def _host_tensor(arr: np.ndarray) -> torch.Tensor:
+    """Host buffer -> CPU tensor of the same dtype and bytes.
     `np.frombuffer` views of file bytes are read-only, which
     `torch.from_numpy` refuses, so those are copied first."""
     arr = np.ascontiguousarray(arr)
     if not arr.flags.writeable:
         arr = arr.copy()
-    return torch.from_numpy(arr).to(device)
+    return torch.from_numpy(arr)
+
+
+def _to_device(arr: np.ndarray, device) -> torch.Tensor:
+    """Host buffer -> tensor on `device` (same dtype and bytes)."""
+    return _host_tensor(arr).to(device)
+
+
+def _rows_to_device(parts, device) -> torch.Tensor:
+    """The host arrays `parts`, stacked along axis 0, as ONE tensor on
+    `device`: each part is copied into its rows of the device tensor, so a
+    run reaches the card without a host-side concatenation of its chunks.
+    (With the concatenation and one large copy, a batched 42 MB ffor read on
+    an H100 was slower than the chunk-by-chunk read in two paired runs;
+    PERF.md, section 5. Two pairs are no proof and no gain is claimed.)"""
+    first = _host_tensor(parts[0])
+    rows = sum(p.shape[0] for p in parts)
+    out = torch.empty((rows, *first.shape[1:]), dtype=first.dtype, device=device)
+    at = 0
+    for part in parts:
+        out[at:at + part.shape[0]].copy_(_host_tensor(part))
+        at += part.shape[0]
+    return out
 
 
 def _not_ported(codec: str):
@@ -123,16 +146,18 @@ def _decode_packed_device(codec, packed, base, w, ref_val, dtype,
     if codec == "bitpack":
         return ck.unpack(packed, w, dtype)
     if codec == "ffor":
-        return ck.unfor_pack(packed, int(ref_val), w, dtype)
+        # one scalar (a Python int) or one reference per block (a tensor)
+        ref = ref_val if isinstance(ref_val, torch.Tensor) else int(ref_val)
+        return ck.unfor_pack(packed, ref, w, dtype)
     raise ValueError(f"unknown codec {codec!r}")
 
 
 #: codecs whose payloads batch across chunks (same width) into ONE kernel
-#: launch and one host-to-device transfer. rle always batches (the run-index
-#: stream is W=1 by construction; run values concatenate into one flat
-#: gather). ffor stays per-chunk: its per-chunk scalar reference would need
-#: a per-block reference in the kernel.
-_BATCHABLE = ("bitpack", "delta", "zdelta", "rle", "dict")
+#: launch and one host-to-device transfer: every integer codec. rle always
+#: batches (the run-index stream is W=1 by construction; run values
+#: concatenate into one flat gather). A run of ffor chunks carries its
+#: per-chunk references as one (B,) per-block reference beside the payload.
+_BATCHABLE = ("bitpack", "ffor", "delta", "zdelta", "rle", "dict")
 
 
 def _group_sig(meta):
@@ -160,7 +185,7 @@ def _decode_dict_batched(run, dtype, device):
         dicts.append(dictionary)
         packeds.append(packed)
         n_blocks_each.append(meta["n_blocks"])
-    pi = _to_device(np.concatenate(packeds), device)
+    pi = _rows_to_device(packeds, device)
     codes = ck.unpack(pi, run[0][0]["width"], "u16")
     sizes = np.array([d.size for d in dicts], np.int64)
     chunk_offsets = np.cumsum(sizes) - sizes
@@ -180,8 +205,8 @@ def _decode_rle_batched(run, dtype, device):
         bvs.append(basev)
         all_counts.append(counts)
         rvs.append(run_values)
-    pi = _to_device(np.concatenate(pis), device)
-    bv = _to_device(np.concatenate(bvs), device)
+    pi = _rows_to_device(pis, device)
+    bv = _rows_to_device(bvs, device)
     return _rle_gather(pi, bv, np.concatenate(all_counts), np.concatenate(rvs),
                        dtype, device)
 
@@ -226,24 +251,30 @@ def _decode_run_batched(sig, run, dtype, device, natural=False):
     nl = layout.lanes(dtype)
     np_dt = layout.np_dtype(dtype)
     codec = sig[0]
-    # concatenate payloads on the HOST, then one transfer + one launch
+    # the chunks' payloads land in one device tensor, then one launch
     if codec == "rle":
         return _decode_rle_batched(run, dtype, device)
     if codec == "dict":
         return _decode_dict_batched(run, dtype, device)
     w = sig[1]
     plen = layout.packed_len(dtype, w)
+    base = ref = None
     if codec in ("delta", "zdelta"):
         pairs = [_parse_delta_payload(r, m["n_blocks"], dtype, nl, np_dt,
                                       plen) for m, r in run]
-        base = _to_device(np.concatenate([p[0] for p in pairs], axis=0), device)
-        packed = _to_device(np.concatenate([p[1] for p in pairs], axis=0), device)
-    else:  # bitpack
-        base = None
-        packed = _to_device(np.concatenate(
+        base = _rows_to_device([p[0] for p in pairs], device)
+        packed = _rows_to_device([p[1] for p in pairs], device)
+    else:  # bitpack, ffor
+        packed = _rows_to_device(
             [np.frombuffer(r, np_dt, count=m["n_blocks"] * plen)
-             .reshape(m["n_blocks"], plen) for m, r in run], axis=0), device)
-    return _decode_packed_device(codec, packed, base, w, None, dtype,
+             .reshape(m["n_blocks"], plen) for m, r in run], device)
+        if codec == "ffor":
+            # each chunk's reference, reduced mod 2^T as the scalar form
+            # reduces it, once per block of the chunk
+            refs = [ops_ffor.ref_int(m["reference"], dtype) for m, _ in run]
+            ref = _to_device(np.repeat(np.array(refs, dtype=np_dt),
+                                       [m["n_blocks"] for m, _ in run]), device)
+    return _decode_packed_device(codec, packed, base, w, ref, dtype,
                                  natural=natural)
 
 

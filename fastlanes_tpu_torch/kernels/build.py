@@ -22,12 +22,14 @@ SOURCES = (os.path.join(_PKG, "csrc", "codecs.cu"),)
 BUILD_DIR = os.path.join(_PKG, "build")
 LIB_NAME = "libfastlanes_cuda.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
 #: seconds the last nvcc run of this process took (None: loaded from cache)
 last_build_seconds = None
+#: what ptxas said in that run: registers, shared memory and spills per kernel
+last_build_log = None
 
 
 def find_nvcc() -> str:
@@ -54,7 +56,7 @@ def source_hash() -> str:
 
 def build(force: bool = False) -> str:
     """Compile the library if it is missing or stale; returns its path."""
-    global last_build_seconds
+    global last_build_seconds, last_build_log
     lib_path = os.path.join(BUILD_DIR, LIB_NAME)
     stamp_path = lib_path + ".sha256"
     want = source_hash()
@@ -73,6 +75,7 @@ def build(force: bool = False) -> str:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
     last_build_seconds = time.perf_counter() - t0
+    last_build_log = proc.stderr
     os.replace(tmp_path, lib_path)
     with open(stamp_path, "w") as f:
         f.write(want)
@@ -88,10 +91,13 @@ def load():
         if _lib is None:
             lib = ctypes.CDLL(build())
             for entry in (lib.fl_decode, lib.fl_encode):
+                # (op, order, tbits, src, out, base, base_stride, ref,
+                #  ref_stride, reference, n_blocks, width, stream)
                 entry.argtypes = [
-                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_longlong,
-                    ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_ulonglong,
+                    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
                 entry.restype = ctypes.c_int
             lib.fl_error_string.argtypes = [ctypes.c_int]
             lib.fl_error_string.restype = ctypes.c_char_p

@@ -1,8 +1,9 @@
 """CUDA kernels for the FastLanes codecs: the hot compute path.
 
 The counterpart of fastlanes_tpu/kernels/pallas_codecs.py for an NVIDIA
-Hopper GPU. Each wrapper below replaces one Pallas TPU kernel, built there
-from `_unpack_body` (pallas_codecs.py:213-268) or `_pack_body` (:271-289):
+Hopper GPU. Each wrapper below replaces one TPU kernel. Seven are built
+there from `_unpack_body` (pallas_codecs.py:213-268) or `_pack_body`
+(:271-289) and work in TRANSPOSED order:
 
   unpack         replaces pallas_codecs.unpack         (:635-653)
   unfor_pack     replaces pallas_codecs.unfor_pack     (:721-735)
@@ -12,24 +13,36 @@ from `_unpack_body` (pallas_codecs.py:213-268) or `_pack_body` (:271-289):
   delta_pack     replaces pallas_codecs.delta_pack     (:706-718)
   for_pack       replaces pallas_codecs.for_pack       (:898-909)
 
-The seven are two templated kernels in csrc/codecs.cu (built by
-kernels/build.py), one for decode and one for encode. Bound: memory traffic
-only. A launch moves B*1024*W/8 packed bytes and B*1024*T/8 value bytes
-(+ B*LANES*T/8 for a per-block base), with a few integer operations per
-value. The design answers that bound with one thread per (block, lane): the
-lane's words, its running sum or previous value and the word under
-construction stay in registers, every global load and store is contiguous
-across the lanes of a block, and nothing is staged or re-read.
+Four read or write ORIGINAL order in the same pass. On the TPU the in-kernel
+relayout was tried in benchmarks/exp_untranspose_pallas.py (six kernel
+bodies, `pl.pallas_call` at :292) and refused by the compiler, so the package
+entries run a kernel and a second gather pass; here they are one kernel:
+
+  unpack_orig         replaces _kernel_pD/_kernel_pF (:164/:261), entry pallas_codecs.py:805
+  undelta_pack_orig   replaces _kernel_pB/_kernel_pE/_kernel_pG (:98/:171/:267), entry :820
+  unzdelta_pack_orig  the same bodies with the unzigzag hook, entry :841
+  delta_pack_orig     the encode dual (entry :861-895; _kernel_pA :91 is its relayout)
+
+The eleven are four templated kernels in csrc/codecs.cu (built by
+kernels/build.py) around one decode and one encode row loop. Bound: memory
+traffic only. A launch moves B*1024*W/8 packed bytes and B*1024*T/8 value
+bytes (+ B*LANES*T/8 for a per-block base), with a few integer operations
+per value. The design answers that bound with one thread per (block, lane):
+the lane's words, its running sum or previous value and the word under
+construction stay in registers, and every global load and store is
+contiguous across the threads of a warp. In transposed order that holds row
+by row. In original order a lane's T rows are T consecutive values, so those
+kernels stage the block in shared memory and move it with consecutive
+threads on consecutive words.
 
 Beside each kernel stands its plain PyTorch version (`*_plain`, built from
 ops/). A wrapper takes the plain version only for a tensor that lies on the
 CPU; for a CUDA tensor it launches the kernel or raises. `LAUNCHES[name]`
 counts the kernel launches of each wrapper.
 
-The original-order entries (`*_orig`) are transpose/untranspose gather +
-kernel, the reference's own `compose` strategy. `pack_map` takes a Python
-producer, which cannot enter a compiled kernel: it is the plain version on
-every device, as it is ops-only in the JAX package (pallas_codecs.py:738-744).
+`pack_map` takes a Python producer, which cannot enter a compiled kernel: it
+is the plain version on every device, as it is ops-only in the JAX package
+(pallas_codecs.py:738-744).
 """
 
 from __future__ import annotations
@@ -42,16 +55,24 @@ from ..ops import _engine as eng
 from ..ops import bitpack as ops_bitpack
 from ..ops import delta as ops_delta
 from ..ops import ffor as ops_ffor
+from ..ops import orig as ops_orig
 from ..ops import transpose as ops_transpose
 from . import build
 
-#: kernel launches per wrapper (plain integers; reset by assigning 0)
-LAUNCHES = {"unpack": 0, "unfor_pack": 0, "undelta_pack": 0, "unzdelta_pack": 0,
-            "pack": 0, "delta_pack": 0, "for_pack": 0}
+#: kernel -> (C entry, op code, order code) of csrc/codecs.cu. Order 0 is
+#: transposed, 1 original.
+_KERNELS = {
+    "unpack": ("fl_decode", 0, 0), "unfor_pack": ("fl_decode", 1, 0),
+    "undelta_pack": ("fl_decode", 2, 0), "unzdelta_pack": ("fl_decode", 3, 0),
+    "unpack_orig": ("fl_decode", 0, 1), "undelta_pack_orig": ("fl_decode", 2, 1),
+    "unzdelta_pack_orig": ("fl_decode", 3, 1),
+    "pack": ("fl_encode", 0, 0), "delta_pack": ("fl_encode", 1, 0),
+    "for_pack": ("fl_encode", 2, 0), "delta_pack_orig": ("fl_encode", 1, 1),
+}
+_ZIGZAG_ENCODE_OP = 3  # delta_pack_orig(zigzag=True)
 
-#: op codes of the C entries fl_decode and fl_encode (csrc/codecs.cu)
-_DECODE_OP = {"unpack": 0, "unfor_pack": 1, "undelta_pack": 2, "unzdelta_pack": 3}
-_ENCODE_OP = {"pack": 0, "delta_pack": 1, "for_pack": 2}
+#: kernel launches per wrapper (plain integers; reset by assigning 0)
+LAUNCHES = {name: 0 for name in _KERNELS}
 
 
 def reset_launches() -> None:
@@ -95,39 +116,68 @@ def for_pack_plain(values, reference, width, dtype):
     return ops_ffor.for_pack(values, reference, width, dtype)
 
 
+def unpack_orig_plain(packed, width, dtype):
+    return ops_transpose.untranspose(unpack_plain(packed, width, dtype), dtype)
+
+
+def undelta_pack_orig_plain(packed, base, width, dtype):
+    return ops_transpose.untranspose(undelta_pack_plain(packed, base, width, dtype), dtype)
+
+
+def unzdelta_pack_orig_plain(packed, base, width, dtype):
+    return ops_transpose.untranspose(unzdelta_pack_plain(packed, base, width, dtype), dtype)
+
+
+def delta_pack_orig_plain(values, width, dtype, *, zigzag=False):
+    return ops_orig.delta_pack_orig(values, width, dtype, zigzag=zigzag)
+
+
 # ---------------------------------------------------------------------------
 # kernel launch
 
 
-def _launch(name, src2d, base, reference, width, dtype):
+def _launch(name, src2d, base, reference, width, dtype, zigzag=False):
     """Launch the kernel `name` on a checked, contiguous 2-D CUDA tensor:
     (B, plen) -> (B, 1024) for a decode kernel, (B, 1024) -> (B, plen) for
-    an encode kernel. `base` is None or a checked CUDA tensor."""
+    an encode kernel. `base` is None or a checked CUDA tensor; `reference`
+    a Python int or a checked (B,) CUDA tensor. `delta_pack_orig` returns
+    (packed, base), the base a (B, LANES) output of the same launch."""
     t = layout.bit_width(dtype)
     nl = layout.lanes(dtype)
     n_blocks = src2d.shape[0]
-    encode = name in _ENCODE_OP
+    entry, op, order = _KERNELS[name]
+    encode = entry == "fl_encode"
+    makes_base = name == "delta_pack_orig"
+    if makes_base and zigzag:
+        op = _ZIGZAG_ENCODE_OP
     out_cols = layout.packed_len(dtype, width) if encode else layout.BLOCK
     out = torch.empty((n_blocks, out_cols), dtype=src2d.dtype, device=src2d.device)
-    if out.numel() == 0:
-        return out  # an empty batch, or W=0 packed: nothing to write, no launch
+    if makes_base:
+        base = torch.empty((n_blocks, nl), dtype=src2d.dtype, device=src2d.device)
+    result = (out, base) if makes_base else out
+    # an empty batch, or W=0 packed, has nothing to write and launches
+    # nothing; delta_pack_orig at W=0 still launches, for the base
+    if n_blocks == 0 or (out.numel() == 0 and not makes_base):
+        return result
     base_ptr, base_stride = None, 0
     if base is not None:
         base_ptr = base.data_ptr()
         base_stride = nl if base.ndim == 2 else 0
+    ref_ptr, ref_stride = None, 0
+    if isinstance(reference, torch.Tensor):
+        ref_ptr, ref_stride, reference = reference.data_ptr(), 1, 0
     lib = build.load()
-    entry, op = (lib.fl_encode, _ENCODE_OP[name]) if encode else \
-        (lib.fl_decode, _DECODE_OP[name])
     with torch.cuda.device(src2d.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = entry(op, t, src2d.data_ptr() or None, out.data_ptr(), base_ptr,
-                    reference, n_blocks, width, base_stride, stream or None)
+        err = getattr(lib, entry)(
+            op, order, t, src2d.data_ptr() or None, out.data_ptr() or None, base_ptr,
+            base_stride, ref_ptr, ref_stride, reference, n_blocks, width, stream or None)
     if err != 0:
         raise RuntimeError(
             f"CUDA launch of {name} ({dtype} W={width} B={n_blocks}) failed: "
             f"{lib.fl_error_string(err).decode()} ({err})")
     LAUNCHES[name] += 1
-    return out
+    return result
 
 
 def _prep_source(src, width, dtype, encode):
@@ -160,25 +210,52 @@ def _prep_base(base, dtype, src2d):
     return eng.from_vec(vec, dtype).contiguous()
 
 
-def _run(name, plain_fn, src, param, width, dtype):
-    dtype, arr, had_batch = _prep_source(src, width, dtype, name in _ENCODE_OP)
+def _prep_reference(reference, dtype, src2d):
+    """The reference of unfor_pack / for_pack: one scalar as a Python int in
+    [0, 2^T), or per-block references ((B,) or (B, 1)) as a contiguous (B,)
+    unsigned tensor on the source's device. A numpy array follows the source
+    to its device; a tensor on another device or of another length raises."""
+    if not ops_ffor.is_per_block(reference, dtype):
+        return ops_ffor.ref_int(reference, dtype)
+    ref = eng.as_unsigned(reference, dtype)
+    if not isinstance(reference, torch.Tensor):
+        ref = ref.to(src2d.device)
+    ref = ref.reshape(-1).contiguous()
+    if ref.shape[0] != src2d.shape[0]:
+        raise ValueError(
+            f"per-block reference has {ref.shape[0]} entries for {src2d.shape[0]} blocks")
+    if ref.device != src2d.device:
+        raise ValueError(f"reference lies on {ref.device}, the payload on {src2d.device}")
+    return ref
+
+
+def _aligned(arr):
+    """Contiguous and 16-byte aligned, as the kernels' word accesses
+    need (a view into the middle of a u8/u16 buffer may not be)."""
+    arr = arr.contiguous()
+    return arr if arr.data_ptr() % 16 == 0 else arr.clone()
+
+
+def _run(name, plain_fn, src, param, width, dtype, **plain_kwargs):
+    entry = _KERNELS[name][0]
+    dtype, arr, had_batch = _prep_source(src, width, dtype, entry == "fl_encode")
     if name in ("unfor_pack", "for_pack"):
-        # the kernels take one scalar, on either device
-        param = ops_ffor.ref_int(param, dtype)
+        param = _prep_reference(param, dtype, arr)
     if arr.device.type == "cpu":
         args = (arr,) if param is None else (arr, param)
-        out = plain_fn(*args, width, dtype)
+        out = plain_fn(*args, width, dtype, **plain_kwargs)
     elif arr.device.type == "cuda":
-        arr = arr.contiguous()
         base, reference = None, 0
         if name in ("unfor_pack", "for_pack"):
             reference = param
-        elif name not in ("unpack", "pack"):
+        elif param is not None:
             base = _prep_base(param, dtype, arr)
-        out = _launch(name, arr, base, reference, width, dtype)
+        out = _launch(name, _aligned(arr), base, reference, width, dtype, **plain_kwargs)
     else:
         raise RuntimeError(f"{name}: unsupported device {arr.device}")
-    return out if had_batch else out[0]
+    if had_batch:
+        return out
+    return tuple(o[0] for o in out) if isinstance(out, tuple) else out[0]
 
 
 # ---------------------------------------------------------------------------
@@ -192,7 +269,8 @@ def unpack(packed, width, dtype):
 
 
 def unfor_pack(packed, reference, width, dtype):
-    """FoR::unfor_pack: unpack + wrapping add of the scalar reference."""
+    """FoR::unfor_pack: unpack + wrapping add of the reference, one scalar
+    or one per block ((B,) or (B, 1), on the payload's device)."""
     return _run("unfor_pack", unfor_pack_plain, packed, reference, width, dtype)
 
 
@@ -220,7 +298,8 @@ def delta_pack(values, base, width, dtype):
 
 
 def for_pack(values, reference, width, dtype):
-    """FoR::for_pack: wrapping subtract of the scalar reference, then pack."""
+    """FoR::for_pack: wrapping subtract of the reference (one scalar or one
+    per block, as in `unfor_pack`), then pack."""
     return _run("for_pack", for_pack_plain, values, reference, width, dtype)
 
 
@@ -230,40 +309,33 @@ def pack_map(fn, values, width, dtype):
     return ops_bitpack.pack_map(fn, values, width, dtype)
 
 
-# -- original-order entries: kernel + transpose/untranspose gather. FLT
-#    delta/zdelta/rle chunks store transposed blocks; the decode entries
-#    return ORIGINAL order and the encode entry takes it.
+# -- original-order entries, one kernel each. FLT delta/zdelta/rle chunks
+#    store transposed blocks; the decode entries return ORIGINAL order and
+#    the encode entry takes it.
 
 
 def unpack_orig(packed, width, dtype):
     """unpack straight to original order (macros.rs:101-174 composed with
     transpose.rs:18-22)."""
-    return ops_transpose.untranspose(unpack(packed, width, dtype), dtype)
+    return _run("unpack_orig", unpack_orig_plain, packed, None, width, dtype)
 
 
 def undelta_pack_orig(packed, base, width, dtype):
     """Delta decode to original order (delta.rs:48-63 composed with
     transpose.rs:18-22): the sorted-column file-read path."""
-    return ops_transpose.untranspose(undelta_pack(packed, base, width, dtype), dtype)
+    return _run("undelta_pack_orig", undelta_pack_orig_plain, packed, base, width, dtype)
 
 
 def unzdelta_pack_orig(packed, base, width, dtype):
     """zdelta decode to original order."""
-    return ops_transpose.untranspose(unzdelta_pack(packed, base, width, dtype), dtype)
+    return _run("unzdelta_pack_orig", unzdelta_pack_orig_plain, packed, base, width, dtype)
 
 
 def delta_pack_orig(values, width, dtype, *, zigzag=False):
     """ENCODE dual: ORIGINAL-order values -> (packed, base) for the
-    delta/zdelta wire format, in the reference's `compose` form
-    (pallas_codecs.py:874-895): transpose gather, base = row 0 of each
-    transposed block, then the delta_pack kernel; with zigzag, the plain
-    delta, zigzag, then the pack kernel. The returned base owns its memory."""
-    dtype = layout.canon_dtype(dtype)
-    layout.check_width(dtype, width)
-    nl = layout.lanes(dtype)
-    tr = ops_transpose.transpose(eng.as_unsigned(values, dtype), dtype)
-    base = tr[..., :nl].contiguous()
-    if not zigzag:
-        return delta_pack(tr, base, width, dtype), base
-    zz = transforms.zigzag_unsigned(ops_delta.delta(tr, base, dtype))
-    return pack(zz, width, dtype), base
+    delta/zdelta wire format. base = row 0 of each transposed block,
+    (B, LANES); the deltas are taken against it (so delta row 0 is zero),
+    zigzagged if asked, and packed. W=0 has no packed words, but the kernel
+    still runs to produce the base. The returned base owns its memory."""
+    return _run("delta_pack_orig", delta_pack_orig_plain, values, None, width, dtype,
+                zigzag=zigzag)

@@ -218,8 +218,9 @@ class RLECodec(Codec):
     """Run-length encoding via the run-index vector (FastLanes VLDB'23
     family; fio's `rle` chunks as a codec class). Run detection is host-side
     numpy; the index stream (u16, W=1) is delta-packed on the device.
-    Decode runs on the device: fused undelta_pack of the index stream ->
-    untranspose -> one gather into the flat run-value stream."""
+    Decode runs on the device: the index stream through undelta_pack_orig
+    (one kernel, original order) -> one gather into the flat run-value
+    stream."""
 
     name = "rle"
 

@@ -103,7 +103,8 @@ def test_transforms_are_both_covered(tmp_path, rng):
 
 def test_same_signature_chunks_decode_in_one_batch(tmp_path, rng, monkeypatch):
     """A run of equal-(codec, width) chunks is one decode call, as in the
-    reference's _decode_chunks_grouped; ffor stays one call per chunk."""
+    reference's _decode_chunks_grouped; ffor runs batch too (the port's
+    unfor_pack takes one reference per block)."""
     calls = []
     real = tdev._decode_packed_device
 
@@ -121,9 +122,86 @@ def test_same_signature_chunks_decode_in_one_batch(tmp_path, rng, monkeypatch):
     tdev.read_blocks_device(path, 3, 9, device="cpu")  # chunks 1..4
     assert calls == [("bitpack", 8)]
     calls.clear()
-    tfio.write_file(path, codec_blocks(rng, "u32", "ffor", 6), codec="ffor", chunk_blocks=2)
+    header = tfio.write_file(path, codec_blocks(rng, "u32", "ffor", 6), codec="ffor",
+                             chunk_blocks=2)
     tdev.read_file_device(path, device="cpu")
-    assert calls == [("ffor", 2)] * 3
+    widths = [c["width"] for c in header["chunks"]]
+    runs = [w for i, w in enumerate(widths) if i == 0 or widths[i - 1] != w]
+    assert sum(n for _, n in calls) == 6 and len(calls) == len(runs)
+
+
+def ffor_chunks(rng, dt, widths, chunk_blocks):
+    """Blocks whose chunk i has its own reference and exactly widths[i] bits
+    of range above it."""
+    t = layout.bit_width(dt)
+    chunks = []
+    for i, w in enumerate(widths):
+        reference = (i * 37 + 5) % (1 << (t - 1)) + (1 << (t - 2))
+        block = rng.integers(0, 1 << w, size=(chunk_blocks, layout.BLOCK), dtype=np.uint64)
+        block[0, 0], block[0, 1] = 0, (1 << w) - 1
+        chunks.append(block + np.uint64(reference))
+    return np.concatenate(chunks).astype(layout.np_dtype(dt))
+
+
+@pytest.mark.parametrize("dt", ["u16", "u32", "u64"])
+@pytest.mark.parametrize("widths,n_runs", [((5, 5, 5, 5, 5), 1), ((5, 9, 5, 9, 5, 9), 6),
+                                           ((5, 5, 9, 9, 9, 5), 3)],
+                         ids=["equal", "alternating", "runs"])
+def test_ffor_runs_decode_in_one_call_each(tmp_path, rng, monkeypatch, dt, widths, n_runs):
+    """A multi-chunk ffor file whose chunks have different references: whole
+    and by a block range that starts and ends inside chunks it equals the
+    host reader and the reference's device read, and each run of equal width
+    is ONE call of unfor_pack with one reference per block."""
+    cb = 3
+    values = ffor_chunks(rng, dt, widths, cb)
+    path = str(tmp_path / "col.flt")
+    header = tfio.write_file(path, values, dtype=dt, codec="ffor", chunk_blocks=cb)
+    assert [c["width"] for c in header["chunks"]] == list(widths)
+    assert len({c["reference"] for c in header["chunks"]}) == len(widths)
+    n = values.shape[0]
+    check_file(path, ranges=[(1, n - 1), (cb + 1, 3 * cb - 1), (cb, 2 * cb)])
+    calls = []
+    real = ck.unfor_pack
+
+    def spy(packed, reference, w, dtype):
+        per_block = isinstance(reference, torch.Tensor)
+        calls.append((packed.shape[0], w, tuple(reference.shape) if per_block else None))
+        return real(packed, reference, w, dtype)
+
+    monkeypatch.setattr(ck, "unfor_pack", spy)
+    got = tdev.read_file_device(path, device="cpu")
+    assert np.array_equal(port_np(got, dt), values)
+    assert len(calls) == n_runs and sum(c[0] for c in calls) == n
+    for blocks, _, ref_shape in calls:  # a single chunk keeps its scalar
+        assert ref_shape == (None if blocks == cb else (blocks,))
+    calls.clear()
+    part = tdev.read_blocks_device(path, cb + 1, 3 * cb - 1, device="cpu")  # chunks 1, 2
+    assert np.array_equal(port_np(part, dt), values[cb + 1:3 * cb - 1])
+    assert len(calls) == (1 if widths[1] == widths[2] else 2)
+
+
+@pytest.mark.parametrize("dt", ["u8", "u16", "u32", "u64"])
+def test_ffor_run_reduces_header_references_like_a_single_chunk(tmp_path, rng, dt):
+    """A header reference outside [0, 2^T) (negative, or 2^T too large) is
+    reduced mod 2^T in a batched run exactly as in a chunk decoded alone."""
+    t, cb = layout.bit_width(dt), 2
+    values = ffor_chunks(rng, dt, (5, 5), cb)
+    path = str(tmp_path / "col.flt")
+    header = tfio.write_file(path, values, dtype=dt, codec="ffor", chunk_blocks=cb)
+    assert [c["codec"] for c in header["chunks"]] == ["ffor", "ffor"]
+    covering = []
+    with open(path, "rb") as f:
+        base = tfio._payload_base(path)
+        for meta, shift in zip(header["chunks"], (-(1 << t), 1 << t)):
+            f.seek(base + meta["offset"])
+            covering.append((dict(meta, reference=meta["reference"] + shift),
+                             f.read(meta["nbytes"])))
+    cpu = torch.device("cpu")
+    run = tdev._decode_chunks_grouped(covering, dt, cpu)
+    assert len(run) == 1
+    assert np.array_equal(port_np(run[0], dt), values)
+    alone = [tdev._decode_chunks_grouped([c], dt, cpu)[0] for c in covering]
+    assert np.array_equal(port_np(tdev._concat_parts(alone, dt, cpu), dt), values)
 
 
 def test_natural_order_keeps_the_transposed_image(tmp_path, rng):

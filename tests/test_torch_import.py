@@ -89,7 +89,8 @@ def test_public_names_are_the_kernel_wrappers():
     from fastlanes_tpu_torch.ops import bitpack, delta, dispatch, ffor, single, transpose
 
     for name in ("pack", "pack_map", "unpack", "undelta_pack", "delta_pack", "for_pack",
-                 "unfor_pack"):
+                 "unfor_pack", "unpack_orig", "undelta_pack_orig", "unzdelta_pack_orig",
+                 "delta_pack_orig"):
         assert getattr(fastlanes_tpu_torch, name) is getattr(ck, name), name
     for name, plain in (("pack", bitpack.pack), ("unpack", bitpack.unpack),
                         ("undelta_pack", delta.undelta_pack),
@@ -106,7 +107,9 @@ def test_public_names_are_the_kernel_wrappers():
     assert fastlanes_tpu_torch.auto_encode is codecs.auto_encode
     assert fastlanes_tpu_torch.get_codec is codecs.get_codec
     assert set(ck.LAUNCHES) == {"unpack", "unfor_pack", "undelta_pack", "unzdelta_pack",
-                                "pack", "delta_pack", "for_pack"}
+                                "pack", "delta_pack", "for_pack", "unpack_orig",
+                                "undelta_pack_orig", "unzdelta_pack_orig",
+                                "delta_pack_orig"}
 
 
 def test_public_codec_names_match_the_reference_package():

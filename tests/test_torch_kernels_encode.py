@@ -233,8 +233,8 @@ def test_width_zero_empty_and_unbatched(dt, rng):
 
 
 def test_for_pack_per_block_reference(rng):
-    """The plain op takes one reference per block as a (B,) or (B, 1) array,
-    like the JAX op; the kernel wrapper takes the scalar form."""
+    """The plain op and the kernel wrapper take one reference per block as a
+    (B,) or (B, 1) array, like the JAX op."""
     values = full_range(rng, "u16")
     refs = full_range(rng, "u16", cols=1)[:, 0]
     gold = np.concatenate([ref.for_pack(values[i:i + 1], int(refs[i]), 7, "u16")
@@ -244,10 +244,11 @@ def test_for_pack_per_block_reference(rng):
     same(np.asarray(jffor.for_pack(values, refs, 7, "u16")), gold)
     back = tffor.unfor_pack(port_in(gold, "u16"), port_in(refs[:, None].copy(), "u16"), 7, "u16")
     same(port_out(back, "u16") - refs[:, None], (values - refs[:, None]) & np.uint16(127))
-    with pytest.raises(ValueError):
-        ck.for_pack(port_in(values, "u16"), port_in(refs, "u16"), 7, "u16")
-    with pytest.raises(ValueError):
-        tffor.for_pack(port_in(values, "u16"), port_in(refs[:3].copy(), "u16"), 7, "u16")
+    same(port_out(ck.for_pack(port_in(values, "u16"), port_in(refs, "u16"), 7, "u16"),
+                  "u16"), gold)
+    for entry in (ck.for_pack, tffor.for_pack):
+        with pytest.raises(ValueError):
+            entry(port_in(values, "u16"), port_in(refs[:3].copy(), "u16"), 7, "u16")
 
 
 def test_encode_wrappers_reject_bad_input(rng):
