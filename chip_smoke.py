@@ -18,9 +18,21 @@ Delta, zdelta and rle chunks are read and written in ORIGINAL order by the
 fused original-order kernels (no gather pass), a run of ffor chunks decodes
 in one launch with one reference per block, and the transposed-order delta
 entries are driven through their public names on the encoded columns. It
-then times each kernel at the largest shape its path gave it, beside its
-bound, its plain version and a device copy, and each read and each encode
-end to end.
+then drives the float, table, multi-file and scan paths (all at tolerance
+0): the ALP division proof on the card (every exponent, the whole f32 integer
+range and over a million f64 integers each) and float files of 2^25 / 2^24
+values read back bit for bit; a table of 2^24 + 777 rows whose columns take
+every codec between them, column by column through `read_column_device`; 20
+shard files through `read_files_device` (one launch per signature group) and
+`iter_files_device`; and `scan_table`, `scan_column`, `count_where` (all
+eight operators on an integer, a float, a date and a string column) and
+`scan_where` held against NumPy oracles written here, with the launches
+counted: natural-order kernels on the sorted columns, original-order kernels
+only under a validity bitmap or a padded tail, none for a probe the zone maps
+resolve. Last it times each kernel at the largest shape its path gave it,
+beside its bound, its plain version and a device copy, and each read, encode
+and scan end to end. On every driven path, each (kernel, dtype) pair is held
+against its plain version on the tensors of its largest launch there.
 
 Needs one CUDA device and nvcc; it never runs on the CPU. Every phase prints
 one JSON line; any failed phase raises and the exit code is not 0. The last
@@ -31,6 +43,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import statistics
@@ -43,7 +56,7 @@ import numpy as np
 import torch
 
 import fastlanes_tpu_torch
-from fastlanes_tpu_torch import fio, fio_device, transforms
+from fastlanes_tpu_torch import alp, analytics, fio, fio_device, fio_table, transforms
 from fastlanes_tpu_torch.core import layout
 from fastlanes_tpu_torch import kernels
 from fastlanes_tpu_torch.kernels import build
@@ -292,10 +305,15 @@ def phase_kernels(rng) -> dict:
 
 def make_columns(rng, scale: int) -> dict:
     """name -> (values, codec argument, expected chunk codecs or None).
-    `scale` divides every size (1 = the full run)."""
-    n27, n25, n24 = HEADLINE_BLOCKS * layout.BLOCK // scale, (1 << 25) // scale, (1 << 24) // scale
+    `scale` divides every size (1 = the full run). The headline is 2^27
+    values; ffor, delta and zdelta are 2^25 (the shapes the kernel rows are
+    timed at), the other side columns 2^24 (rle and dict were 2^25 until the
+    float, table and scan phases took their share of the run's time: their
+    host encoders are the slowest part of the encode phase)."""
+    n27, n25 = HEADLINE_BLOCKS * layout.BLOCK // scale, (1 << 25) // scale
+    n24 = (1 << 24) // scale
     n22 = (1 << 22) // scale
-    run_lengths = rng.integers(200, 3000, size=n25 // 200)
+    run_lengths = rng.integers(200, 3000, size=n24 // 200)
     run_values = rng.integers(0, 1 << 30, size=run_lengths.size, dtype=np.uint32)
     dictionary = rng.integers(1 << 24, 1 << 31, size=200, dtype=np.uint32)
     nullable = rng.integers(1000, 5000, size=n22 + 777, dtype=np.uint32)
@@ -309,8 +327,8 @@ def make_columns(rng, scale: int) -> dict:
         "zdelta_u32": ((1_000_000_000 + np.cumsum(
             rng.integers(-500, 500, size=n25))).astype(np.uint32),
             "auto", {"zdelta"}),
-        "rle_u32": (np.repeat(run_values, run_lengths)[:n25], "auto", {"rle"}),
-        "dict_u32": (dictionary[rng.integers(0, 200, size=n25)], "auto", {"dict"}),
+        "rle_u32": (np.repeat(run_values, run_lengths)[:n24], "auto", {"rle"}),
+        "dict_u32": (dictionary[rng.integers(0, 200, size=n24)], "auto", {"dict"}),
         "timestamps_u64": (np.uint64(1_700_000_000_000_000) + np.cumsum(
             rng.integers(1, 1000, size=n24, dtype=np.uint64)), "auto", {"delta"}),
         "signed_i32": (rng.integers(-50, 50, size=n24).astype(np.int32), "auto", None),
@@ -454,10 +472,13 @@ class largest_launches:
     """While active, keeps per kernel the arguments of the largest launch
     made: the shapes a path gives a kernel. `seen[name]` holds the source
     tensor, base, reference, width and dtype of that launch (the zigzag form
-    of delta_pack_orig under `delta_pack_orig_zigzag`)."""
+    of delta_pack_orig under `delta_pack_orig_zigzag`). With `per_dtype`
+    the largest launch of every (kernel, dtype) pair is kept, under
+    `seen[name, dtype]`."""
 
-    def __init__(self):
+    def __init__(self, per_dtype: bool = False):
         self.seen = {}
+        self.per_dtype = per_dtype
 
     def __enter__(self):
         self.real = ck._launch
@@ -465,6 +486,8 @@ class largest_launches:
         def spy(name, src2d, base, reference, width, dtype, zigzag=False):
             size = src2d.numel() * src2d.element_size()
             key = name + "_zigzag" if zigzag else name
+            if self.per_dtype:
+                key = (key, dtype)
             if key not in self.seen or size > self.seen[key]["src_bytes"]:
                 self.seen[key] = {"src": src2d, "base": base, "reference": reference,
                                   "width": width, "dtype": dtype, "src_bytes": size}
@@ -476,6 +499,41 @@ class largest_launches:
     def __exit__(self, *exc):
         ck._launch = self.real
         return False
+
+
+def hold_path_shapes(path: str, seen: dict) -> dict:
+    """Every (kernel, dtype) launch recorded on a driven path (the largest
+    of each pair, `largest_launches(per_dtype=True)`): the wrapper against
+    its plain version on those very tensors, bit for bit, or the run fails.
+    Called after the path's launch counts were read, so these launches are
+    not counted. Returns kernel -> the shapes held, and empties `seen`."""
+    shapes = {}
+    for (key, dtype), rec in sorted(seen.items(), key=lambda kv: kv[0]):
+        zigzag = key.endswith("_zigzag")
+        name = key[:-len("_zigzag")] if zigzag else key
+        if name in ("unfor_pack", "for_pack"):
+            param = rec["reference"]
+        elif name == "delta_pack_orig":
+            param = zigzag
+        else:
+            param = rec["base"]
+        got = call_kernel(name, rec["src"], param, rec["width"], dtype)
+        want = call_kernel(name, rec["src"], param, rec["width"], dtype, plain=True)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        shape = {"dtype": dtype, "width": rec["width"], "blocks": rec["src"].shape[0],
+                 "base": None if rec["base"] is None else list(rec["base"].shape),
+                 "reference": "per block" if isinstance(rec["reference"], torch.Tensor)
+                 else None, "max_abs_err": err}
+        if zigzag:
+            shape["zigzag"] = True
+        if err != 0.0:
+            raise AssertionError(f"kernel {name} disagrees with its plain version at a "
+                                 f"shape of the {path} path: {shape}")
+        shapes.setdefault(name, []).append(shape)
+        del got, want
+    seen.clear()
+    return shapes
 
 
 # ---------------------------------------------------------------------------
@@ -666,6 +724,544 @@ def phase_transposed(encode_state: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# float columns, tables, many files, scans (tolerance 0 throughout)
+
+
+def sync_if_cuda(device) -> None:
+    if eng.resolve_device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def launches_since(before: dict) -> dict:
+    return {k: v - before[k] for k, v in ck.LAUNCHES.items() if v != before[k]}
+
+
+def float_bits(arr: np.ndarray) -> np.ndarray:
+    """A float array as its unsigned bit pattern (NaN payloads, signed zero)."""
+    return np.ascontiguousarray(arr).view(f"uint{arr.dtype.itemsize * 8}")
+
+
+def same_host(got, host) -> bool:
+    """A device result (tensor, StringColumn or NullableColumn) against the
+    host reader's array: same mask, and the same bytes wherever the mask does
+    not hide them. Logical dtypes (dates, bools) compare on their storage."""
+    if isinstance(host, np.ma.MaskedArray):
+        if not isinstance(got, fio_device.NullableColumn):
+            return False
+        mask = np.ma.getmaskarray(host)
+        if not np.array_equal(got.valid.cpu().numpy(), ~mask):
+            return False
+        got, host = got.values, np.ma.getdata(host)
+    else:
+        mask = None
+    if isinstance(got, fio_table.StringColumn):
+        arr = got.materialize()
+    else:
+        arr = got.cpu().numpy()
+    if arr.shape != host.shape:
+        return False
+    if host.dtype.kind in "mM":
+        host = host.view(np.int64)
+    elif host.dtype.kind == "b":
+        arr = arr.astype(bool)
+    if arr.dtype != host.dtype:
+        return False
+    if host.dtype.kind == "f":
+        arr, host = float_bits(arr), float_bits(host)
+    if mask is not None:
+        return bool(np.array_equal(arr[~mask], host[~mask]))
+    return bool(np.array_equal(arr, host))
+
+
+def division_inputs(rng, d: int, np_float) -> np.ndarray:
+    """The integers of the division proof for exponent d. f32: EVERY integer
+    of the encoder's range (|i| < 2^24). f64: 2^20 random integers over all
+    magnitudes up to 2^52, plus the adversarial ones: 0, +-1, the bounds,
+    powers of two +-1, multiples of 5^d +-1 and near-halfway quotients."""
+    if np_float is np.float32:
+        bound = (1 << 24) - 1
+        return np.arange(-bound, bound + 1, dtype=np.int64)
+    bound, n = 1 << 52, 1 << 20
+    mag = rng.integers(0, 53, n)
+    i = np.clip(rng.integers(0, 1 << 62, n, dtype=np.int64) >> (62 - mag), 0, bound)
+    i *= rng.integers(0, 2, n, dtype=np.int64) * 2 - 1
+    five = 5 ** d
+    hard = [0, 1, -1, bound, -bound, bound - 1, 1 - bound]
+    for k in range(1, 53):
+        hard += [(1 << k) - 1, (1 << k) + 1, -(1 << k) - 1, 1 - (1 << k)]
+    mult = rng.integers(1, max(2, bound // five), 4096)
+    for m in mult.tolist():
+        hard += [m * five - 1, m * five, m * five + 1, -m * five + 1]
+    k = five.bit_length()
+    for m in rng.integers(1 << 52, 1 << 53, 4096, dtype=np.int64).tolist():
+        cand = (m * five) >> (k + 1)  # i / 5^d close to a rounding boundary
+        hard += [cand - 1, cand, cand + 1, -cand]
+    hard = np.array([h for h in hard if abs(h) <= bound], np.int64)
+    return np.concatenate([i, hard])
+
+
+def float_columns(rng, scale: int) -> dict:
+    """name -> (values, expected chunk codecs) of the float files."""
+    n25, n24 = (1 << 25) // scale, (1 << 24) // scale
+    price = np.round(rng.uniform(0, 100_000, n25), 2)
+    price[[7, n25 // 3, n25 // 2, n25 - 5]] = [np.nan, np.inf, -np.inf, -0.0]
+    ratio = np.round(rng.uniform(-100, 100, n25), 1).astype(np.float32)
+    ratio[[11, n25 // 2 + 1]] = [np.nan, -0.0]
+    return {"price_f64": (price, {"alp"}), "ratio_f32": (ratio, {"alp"}),
+            "noise_f64": (rng.standard_normal(n24) * 1e3, {"alprd"})}
+
+
+def phase_alp(tmp: str, scale: int, device=None) -> dict:
+    """(a) The division proof: decode_device is `ints.to(dtype) / 10^d`, one
+    IEEE division on the card; for every exponent d its bits must equal the
+    host spec's (decode_np) on every integer tried. (b) Float files written
+    by the host writer, read on the card, equal to the host reader bit for
+    bit; ALPCodec round trip on the card."""
+    device = eng.resolve_device(device)
+    rng = np.random.default_rng(SEED + 3)
+    proof = {}
+    for np_float, max_d in ((np.float32, 10), (np.float64, 18)):
+        tried = 0
+        for d in range(max_d + 1):
+            ints = division_inputs(rng, d, np_float)
+            if scale > 1:
+                ints = ints[::scale]
+            reference = int(ints.min())
+            shifted = (ints - reference).astype(
+                np.uint32 if np_float is np.float32 else np.uint64)
+            got = alp.decode_device(torch.from_numpy(shifted).to(device), d, 0, reference,
+                                    np_float)
+            want = alp.decode_np(shifted, d, 0, reference, np_float)
+            bad = float_bits(got.cpu().numpy()) != float_bits(want)
+            if bad.any():
+                at = int(np.flatnonzero(bad)[0])
+                raise AssertionError(
+                    f"ALP division proof failed: {np.dtype(np_float).name} d={d}: "
+                    f"{int(bad.sum())} of {ints.size} differ, first i={int(ints[at])} "
+                    f"card={got.reshape(-1)[at].item()!r} host={want[at]!r}")
+            tried += ints.size
+        proof[np.dtype(np_float).name] = {"exponents": max_d + 1, "integers": tried}
+
+    columns = float_columns(rng, scale)
+    report, paths = {}, {}
+    ck.reset_launches()
+    for name, (values, expect) in columns.items():
+        path = os.path.join(tmp, name + ".flt")
+        t0 = time.perf_counter()
+        header = fio.write_file(path, values)
+        write_seconds = time.perf_counter() - t0
+        found = {c["codec"] for c in header["chunks"]}
+        if found != expect:
+            raise AssertionError(f"{name}: writer chose {found}, meant {expect}")
+        host = fio.read_file(path)
+        if not np.array_equal(float_bits(host), float_bits(values)):
+            raise AssertionError(f"{name}: host read differs from the values written")
+        before = dict(ck.LAUNCHES)
+        t0 = time.perf_counter()
+        got = fio_device.read_file_device(path, device=device)
+        sync_if_cuda(device)
+        read_seconds = time.perf_counter() - t0
+        if not same_host(got, host):
+            raise AssertionError(f"{name}: device read differs from the host read")
+        n = header["n_blocks"]
+        start, stop = n // 3 - 5, n // 3 + header["chunk_blocks"] + 9
+        part = fio_device.read_blocks_device(path, start, stop, device=device)
+        if not same_host(part, fio.read_blocks(path, start, stop)):
+            raise AssertionError(f"{name}: block range differs from the host read")
+        paths[name] = path
+        report[name] = {"values": int(values.size), "dtype": str(values.dtype),
+                        "codecs": sorted(found), "chunks": len(header["chunks"]),
+                        "file_bytes": os.path.getsize(path),
+                        "write_seconds": write_seconds, "read_seconds": read_seconds,
+                        "launches": launches_since(before)}
+        del got, part, host
+    # the codec class, both ways on the card
+    for vtype, column in (("f64", "price_f64"), ("f32", "ratio_f32")):
+        values = columns[column][0][:min(1 << 22, columns[column][0].size)]
+        values = values.reshape(-1, layout.BLOCK)
+        codec = codecs.get_codec("alp", vtype)
+        before = dict(ck.LAUNCHES)
+        enc = codec.encode(values, device=device)
+        back = codec.decode(enc)
+        sync_if_cuda(device)
+        if back.device != enc.payload.device or not np.array_equal(
+                float_bits(back.cpu().numpy()), float_bits(values)):
+            raise AssertionError(f"ALPCodec({vtype}): decode(encode(values)) differs")
+        report["codec_" + vtype] = {"blocks": enc.n_blocks, "width": enc.width,
+                                    "exceptions": int(len(enc.params["exc_pos"])),
+                                    "ratio": enc.compression_ratio,
+                                    "launches": launches_since(before)}
+    launches = dict(ck.LAUNCHES)
+    emit({"phase": "alp", "tolerance": 0, "division": "one IEEE division per value "
+          "(torch `/` on the card), bits equal to the host spec for every integer tried",
+          "division_proof": proof, "columns": report, "launches": launches})
+    return {"paths": paths, "launches": launches, "columns": columns}
+
+
+TABLE_WORDS = np.array(sorted(
+    "AUD BRL CAD CHF CNY CZK DKK EUR GBP HKD HUF ILS INR JPY KRW MXN NOK NZD PLN "
+    "SEK SGD THB USD ZAR".split()))
+
+
+def table_columns(rng, scale: int) -> dict:
+    """The table of the `table` and `scan` phases: 2^24 + 777 rows (ragged),
+    columns that take every codec between them."""
+    n = (1 << 24) // scale + 777
+    steps = rng.integers(1, 1000, n).astype(np.uint64)
+    visits = np.cumsum(rng.integers(0, 9, n)).astype(np.uint32)
+    return {
+        "key": np.uint64(1_700_000_000_000_000) + np.cumsum(steps),    # sorted: delta
+        "day": (np.datetime64("2015-01-01") + rng.integers(0, 3650, n)).astype("datetime64[D]"),
+        "change": rng.integers(-50, 50, n).astype(np.int32),          # zigzag transform
+        "qty": rng.integers(0, 1000, n).astype(np.uint32) + np.uint32(1_000_000_000),  # ffor
+        "cur": TABLE_WORDS[rng.integers(0, TABLE_WORDS.size, n)],      # strings: dict codes
+        "price": np.round(rng.uniform(0, 100_000, n), 2),              # f64: alp
+        "ratio": np.round(rng.uniform(-100, 100, n), 1).astype(np.float32),  # f32: alp
+        # nullable AND sorted: delta chunks under a validity bitmap
+        "visits": np.ma.MaskedArray(visits, mask=rng.random(n) < 0.1),
+    }
+
+
+def phase_table(tmp: str, scale: int, device=None) -> dict:
+    """One table file, every column through read_column_device: whole, and
+    over a block range that crosses chunk boundaries; each equal to the host
+    read_column."""
+    device = eng.resolve_device(device)
+    columns = table_columns(np.random.default_rng(SEED + 4), scale)
+    path = os.path.join(tmp, "table.flt")
+    t0 = time.perf_counter()
+    header = fio_table.write_table(path, columns)
+    write_seconds = time.perf_counter() - t0
+    found = {c["codec"] for col in header["columns"].values() for c in col["chunks"]}
+    if not {"delta", "ffor", "alp"} <= found:
+        raise AssertionError(f"table codecs {found}")
+    if header["columns"]["change"].get("transform") != "zigzag" \
+            or header["columns"]["cur"]["str_dict"]["n_dict"] < 16 \
+            or {c["codec"] for c in header["columns"]["visits"]["chunks"]} != {"delta"}:
+        raise AssertionError("table columns are not what the phase means to drive")
+    report = {}
+    ck.reset_launches()
+    for name in columns:
+        col = header["columns"][name]
+        host = fio_table.read_column(path, name)
+        before = dict(ck.LAUNCHES)
+        t0 = time.perf_counter()
+        got = fio_device.read_column_device(path, name, device=device)
+        sync_if_cuda(device)
+        seconds = time.perf_counter() - t0
+        if not same_host(got, host):
+            raise AssertionError(f"table column {name}: device read differs from read_column")
+        present = ~np.ma.getmaskarray(columns[name])
+        if not np.array_equal(np.ma.getdata(host)[present], np.ma.getdata(columns[name])[present]):
+            raise AssertionError(f"table column {name}: host read differs from the values")
+        whole = launches_since(before)
+        cb, n = col["chunk_blocks"], col["n_blocks"]
+        start, stop = max(0, min(cb, n // 2) - 24), min(n, 2 * cb + 28)
+        part = fio_device.read_column_device(path, name, start, stop, device=device)
+        if not same_host(part, fio_table.read_column(path, name, start, stop)):
+            raise AssertionError(f"table column {name}: range [{start}, {stop}) differs")
+        report[name] = {"codecs": sorted({c["codec"] for c in col["chunks"]}),
+                        "chunks": len(col["chunks"]), "dtype": col["dtype"],
+                        "vtype": col.get("vtype"), "transform": col.get("transform"),
+                        "read_seconds": seconds, "launches": whole, "range": [start, stop]}
+        del got, part, host
+    launches = dict(ck.LAUNCHES)
+    emit({"phase": "table", "tolerance": 0, "rows": len(columns["key"]),
+          "file_bytes": os.path.getsize(path), "write_seconds": write_seconds,
+          "columns": report, "launches": launches})
+    return {"path": path, "columns": columns, "launches": launches}
+
+
+def phase_files(tmp: str, scale: int, device=None) -> dict:
+    """16 shard files of one codec and 4 of another through read_files_device
+    (ONE launch per (dtype, signature) group, whichever file a chunk came
+    from) and through iter_files_device; each equal to the host read_file."""
+    device = eng.resolve_device(device)
+    rng = np.random.default_rng(SEED + 5)
+    n = (1 << 22) // scale
+    shards, others, hosts = [], [], {}
+    for i in range(16):
+        path = os.path.join(tmp, f"shard{i:02d}.flt")
+        fio.write_file(path, rng.integers(0, 1 << 11, n, dtype=np.uint32), codec="bitpack")
+        shards.append(path)
+    for i in range(4):
+        path = os.path.join(tmp, f"other{i}.flt")
+        values = rng.integers(0, 1000, n, dtype=np.uint32)
+        values[::1 << 12] = 0  # every chunk spans the whole range: one width,
+        values[1::1 << 12] = 999  # so the four files form ONE signature group
+        fio.write_file(path, values + np.uint32(1_000_000 * (i + 1)), codec="ffor")
+        others.append(path)
+    paths = shards + others
+    groups = set()
+    for path in paths:
+        header = fio.read_header(path)
+        groups |= {(header["dtype"], fio_device._group_sig(c)) for c in header["chunks"]}
+        hosts[path] = fio.read_file(path)
+    if len(groups) != 2:
+        raise AssertionError(f"the shard files form {len(groups)} signature groups: {groups}")
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    got = fio_device.read_files_device(paths, device=device)
+    sync_if_cuda(device)
+    batch_seconds = time.perf_counter() - t0
+    batch_launches = launches_since({k: 0 for k in ck.LAUNCHES})
+    if eng.resolve_device(device).type == "cuda" and \
+            batch_launches != {"unpack": 1, "unfor_pack": 1}:
+        raise AssertionError(f"read_files_device of 2 signature groups launched {batch_launches}")
+    if list(got) != paths or not all(same_host(got[p], hosts[p]) for p in paths):
+        raise AssertionError("read_files_device differs from the host reads")
+    del got
+    before = dict(ck.LAUNCHES)
+    t0 = time.perf_counter()
+    seen = []
+    for path, tensor in fio_device.iter_files_device(paths, device=device):
+        if not same_host(tensor, hosts[path]):
+            raise AssertionError(f"iter_files_device: {path} differs from the host read")
+        seen.append(path)
+    sync_if_cuda(device)
+    iter_seconds = time.perf_counter() - t0
+    if seen != paths:
+        raise AssertionError("iter_files_device lost the order of its paths")
+    launches = dict(ck.LAUNCHES)
+    emit({"phase": "files", "tolerance": 0, "files": len(paths), "values_each": n,
+          "signature_groups": len(groups), "read_files_device": {
+              "seconds": batch_seconds, "launches": batch_launches},
+          "iter_files_device": {"seconds_with_compare": iter_seconds,
+                                "launches": launches_since(before)},
+          "launches": launches})
+    return {"shards": shards, "others": others, "launches": launches,
+            "shard_values": [hosts[p] for p in shards]}
+
+
+# -- the scans' NumPy oracle ------------------------------------------------
+
+
+def exact_int_sum(arr: np.ndarray) -> int:
+    """Exact sum as a Python int; 64-bit columns in int64 semantics (the
+    scans' convention). Two 32-bit halves, each summed in int64."""
+    a = arr.view(np.int64) if arr.dtype.itemsize == 8 else arr.astype(np.int64)
+    return (int((a >> 32).sum(dtype=np.int64)) << 32) + int((a & 0xFFFFFFFF).sum(dtype=np.int64))
+
+
+def oracle_stats(values, dictionary_size=None) -> dict:
+    """sum/min/max/count of a column as the scans define them."""
+    mask = np.ma.getmaskarray(values)
+    vals = np.ma.getdata(values)[~mask].reshape(-1)
+    if vals.dtype.kind in "mM":
+        vals = vals.view(np.int64)
+    if vals.dtype.kind == "U":
+        words = vals.tolist()  # numpy has no min/max for strings
+        out = {"sum": None, "min": min(words) if words else None,
+               "max": max(words) if words else None, "count": len(words),
+               "n_dict": dictionary_size}
+    elif vals.dtype.kind == "f":
+        if np.isnan(vals).any():
+            total = mn = mx = float("nan")
+        else:
+            with np.errstate(invalid="ignore"):
+                inf_sum = float(vals[np.isinf(vals)].sum()) if np.isinf(vals).any() else None
+            total = inf_sum if inf_sum is not None else math.fsum(vals.tolist())
+            mn, mx = float(vals.min()), float(vals.max())
+        out = {"sum": total, "min": mn, "max": mx, "count": int(vals.size)} if vals.size \
+            else {"sum": 0.0, "min": None, "max": None, "count": 0}
+    else:
+        if vals.dtype.itemsize == 8:
+            vals = vals.view(np.int64)
+        out = {"sum": exact_int_sum(vals), "min": int(vals.min()), "max": int(vals.max()),
+               "count": int(vals.size)} if vals.size \
+            else {"sum": 0, "min": None, "max": None, "count": 0}
+    if isinstance(values, np.ma.MaskedArray):
+        out["n_null"] = int(mask.sum())
+    return out
+
+
+def same_stats(got, want) -> bool:
+    """`==` on two result dicts, with NaN equal to NaN and types held equal."""
+    if isinstance(want, dict):
+        return isinstance(got, dict) and got.keys() == want.keys() and \
+            all(same_stats(got[k], want[k]) for k in want)
+    if type(got) is not type(want):
+        return False
+    if isinstance(want, float) and math.isnan(want):
+        return math.isnan(got)
+    return got == want
+
+
+def oracle_mask(values, op: str, probe):
+    """NumPy comparison semantics; nulls match nothing."""
+    vals = np.ma.getdata(values)
+    if vals.dtype.kind == "U":
+        fn = {"lt": np.char.less, "le": np.char.less_equal, "gt": np.char.greater,
+              "ge": np.char.greater_equal, "eq": np.char.equal, "ne": np.char.not_equal}
+        hit = (np.isin(vals, probe) if op in ("in", "notin") else fn[op](vals, probe))
+    else:
+        if vals.dtype.kind in "mM":
+            cast = lambda v: np.array(v, dtype=vals.dtype)
+            probe = [cast(v) for v in probe] if op in ("in", "notin") else cast(probe)
+        with np.errstate(invalid="ignore"):
+            hit = {"lt": lambda: vals < probe, "le": lambda: vals <= probe,
+                   "gt": lambda: vals > probe, "ge": lambda: vals >= probe,
+                   "eq": lambda: vals == probe, "ne": lambda: vals != probe,
+                   "in": lambda: np.isin(vals, probe),
+                   "notin": lambda: np.isin(vals, probe)}[op]()
+    if op == "notin":
+        hit = ~hit
+    return hit & ~np.ma.getmaskarray(values)
+
+
+ALL_OPS = ("lt", "le", "gt", "ge", "eq", "ne", "in", "notin")
+ORIG_LAUNCHES = ("unpack_orig", "undelta_pack_orig", "unzdelta_pack_orig")
+
+
+def counted(fn):
+    """fn() with the launches, gather passes and host fetches it made."""
+    before = dict(ck.LAUNCHES)
+    fetches = analytics.HOST_FETCHES
+    with count_gathers() as gathers:
+        out = fn()
+        n_gathers = gathers[0]
+    return out, {"launches": launches_since(before), "gather_passes": n_gathers,
+                 "host_fetches": analytics.HOST_FETCHES - fetches}
+
+
+def phase_scan(read_paths: dict, read_columns: dict, table: dict, files: dict,
+               device=None) -> dict:
+    """The scans, each answer equal to a NumPy oracle, with the launches
+    counted: natural-order kernels on the sorted columns, original-order
+    kernels only where a bitmap or a padded tail demands them, and none at
+    all for a probe the zone maps resolve."""
+    device = eng.resolve_device(device)
+    on_card = device.type == "cuda"
+    report = {}
+    ck.reset_launches()
+
+    def expect(label, got, want):
+        if not same_stats(got, want):
+            raise AssertionError(f"scan {label}: {got!r} != oracle {want!r}")
+
+    def orig_count(counts):
+        return sum(counts["launches"].get(k, 0) for k in ORIG_LAUNCHES)
+
+    # scan_table over the whole table
+    tpath, tcols = table["path"], table["columns"]
+    got, counts = counted(lambda: analytics.scan_table(tpath, device=device))
+    for name, values in tcols.items():
+        expect(f"scan_table[{name}]", got[name], oracle_stats(
+            values, TABLE_WORDS.size if name == "cur" else None))
+    report["scan_table"] = counts
+    # ... column by column, for the launch accounting
+    per_column = {}
+    for name in tcols:
+        got, c = counted(lambda: analytics.scan_column(tpath, name, device=device))
+        expect(f"scan_column[{name}]", got, oracle_stats(
+            tcols[name], TABLE_WORDS.size if name == "cur" else None))
+        per_column[name] = c
+    report["scan_column_of_table"] = per_column
+    if on_card:
+        key, visits = per_column["key"], per_column["visits"]
+        # the sorted key: natural order for the bulk, the padded tail chunk alone
+        # in original order; the nullable sorted column: original order throughout
+        if not (key["launches"].get("undelta_pack", 0) >= 1 and orig_count(key) == 1
+                and key["gather_passes"] == 0):
+            raise AssertionError(f"key column scan: {key}")
+        if not (orig_count(visits) >= 1 and visits["gather_passes"] == 0
+                and not visits["launches"].get("undelta_pack")):
+            raise AssertionError(f"nullable sorted column scan: {visits}")
+
+    # sorted files of whole blocks: natural-order kernels ONLY
+    for name, kernel in (("delta_u32", "undelta_pack"), ("zdelta_u32", "unzdelta_pack"),
+                         ("timestamps_u64", "undelta_pack")):
+        got, c = counted(lambda: analytics.scan_column(read_paths[name], device=device))
+        expect(name, got, oracle_stats(read_columns[name][0]))
+        if on_card and not (c["launches"].get(kernel, 0) >= 1 and set(c["launches"]) == {kernel}
+                            and c["gather_passes"] == 0):
+            raise AssertionError(f"{name}: a sorted column of whole blocks must scan with "
+                                 f"{kernel} alone: {c}")
+        report["scan_column_" + name] = c
+    for name in ("headline_u32_w3", "nullable_u32", "signed_i32", "small_u8"):
+        got, c = counted(lambda: analytics.scan_column(read_paths[name], device=device))
+        expect(name, got, oracle_stats(read_columns[name][0]))
+        report["scan_column_" + name] = c
+    # the 16 shards as one dataset
+    shard_values = np.concatenate(files["shard_values"])
+    got, c = counted(lambda: analytics.scan_column(files["shards"], device=device))
+    expect("shards", got, oracle_stats(shard_values))
+    report["scan_column_shards"] = c
+
+    # count_where: all eight operators on an integer, a float, a date and a
+    # string column
+    probes = {"qty": (1_000_000_500, [1_000_000_001, 1_000_000_999, 5]),
+              "price": (50_000.25, [float(tcols["price"][3]), 0.0, -1.0]),
+              "day": (np.datetime64("2020-02-29"), [np.datetime64("2016-01-01"), "2024-12-30"]),
+              "cur": ("JPY", ["EUR", "USD", "XXX"]),
+              "key": (int(tcols["key"][len(tcols["key"]) // 2]), [int(tcols["key"][5])]),
+              "visits": (int(np.ma.getdata(tcols["visits"])[1 << 10]), [0, 3])}
+    counts_report = {}
+    for name, (probe, members) in probes.items():
+        for op in ALL_OPS:
+            value = members if op in ("in", "notin") else probe
+            got, c = counted(lambda: analytics.count_where(tpath, op, value, column=name,
+                                                           device=device))
+            want = int(oracle_mask(tcols[name], op, value).sum())
+            if got != want:
+                raise AssertionError(f"count_where({name} {op} {value!r}) = {got}, "
+                                     f"oracle {want}")
+            counts_report[f"{name}_{op}"] = dict(c, count=got)
+    report["count_where"] = counts_report
+    if on_card:
+        c = counts_report["key_lt"]  # a sorted column: natural order, no relayout
+        if not (c["launches"].get("undelta_pack", 0) >= 1 and c["gather_passes"] == 0):
+            raise AssertionError(f"count_where on the sorted key: {c}")
+    # a probe the zone maps resolve from the header alone: nothing is decoded
+    for name, op, probe, want in (("qty", "lt", 2_000_000_000, len(tcols["qty"])),
+                                  ("key", "lt", 5, 0),
+                                  ("visits", "ge", 0, int((~np.ma.getmaskarray(
+                                      tcols["visits"])).sum()))):
+        got, c = counted(lambda: analytics.count_where(tpath, op, probe, column=name,
+                                                       device=device))
+        if got != want or c["launches"] or c["host_fetches"]:
+            raise AssertionError(f"zone-map probe {name} {op} {probe}: {got} (meant {want}), "
+                                 f"decoded with {c}")
+        report[f"zone_resolved_{name}_{op}"] = dict(c, count=got)
+    got, c = counted(lambda: analytics.count_where(
+        read_paths["headline_u32_w3"], "ge", 4, device=device))
+    if got != int((read_columns["headline_u32_w3"][0] >= 4).sum()):
+        raise AssertionError("count_where on the headline column differs from numpy")
+    report["count_where_headline"] = dict(c, count=got)
+
+    # scan_where: same column, and cross-column in lockstep
+    where_cases = [("price", None, "gt", 75_000.5), ("key", None, "lt", probes["key"][0]),
+                   ("qty", None, "in", [1_000_000_001, 1_000_000_002]),
+                   ("price", "cur", "eq", "EUR"), ("key", "qty", "ge", 1_000_000_900),
+                   ("qty", "price", "lt", 10.0), ("price", "visits", "ne", 3),
+                   ("visits", "day", "ge", np.datetime64("2024-01-01")),
+                   ("cur", "change", "lt", -45)]
+    where_report = {}
+    for column, where, op, value in where_cases:
+        got, c = counted(lambda: analytics.scan_where(tpath, op, value, column=column,
+                                                      where=where, device=device))
+        hit = oracle_mask(tcols[where or column], op, value) \
+            & ~np.ma.getmaskarray(tcols[column])
+        want = oracle_stats(np.ma.getdata(tcols[column])[hit],
+                            TABLE_WORDS.size if column == "cur" else None)
+        expect(f"scan_where({column} where {where} {op} {value!r})", got, want)
+        where_report[f"{column}_where_{where or column}_{op}"] = c
+    report["scan_where"] = where_report
+    if on_card:
+        c = where_report["key_where_key_lt"]
+        if not (c["launches"].get("undelta_pack", 0) >= 1 and c["gather_passes"] == 0):
+            raise AssertionError(f"scan_where on the sorted key: {c}")
+        c = where_report["key_where_qty_ge"]  # a lockstep walk is positional
+        if not (c["launches"].get("undelta_pack_orig", 0) >= 1
+                and not c["launches"].get("undelta_pack") and c["gather_passes"] == 0):
+            raise AssertionError(f"lockstep scan_where on the sorted key: {c}")
+    launches = dict(ck.LAUNCHES)
+    emit({"phase": "scan", "tolerance": 0, "oracle": "numpy in this script: Python-int "
+          "sums, math.fsum, numpy comparisons", **report, "launches": launches})
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # timing
 
 
@@ -780,17 +1376,19 @@ def kernel_row(name, rec, launches, worst, smi, zigzag_rec=None) -> dict:
             lambda: compose_form(name, src, param, width, dtype), 10, inner=10)
     if zigzag_rec is not None:
         z = zigzag_rec
-        z_err = max_abs_err(call_kernel(name, z["src"], True, z["width"], dtype),
-                            call_kernel(name, z["src"], True, z["width"], dtype, plain=True))
+        zdt = z["dtype"]
+        z_err = max_abs_err(call_kernel(name, z["src"], True, z["width"], zdt),
+                            call_kernel(name, z["src"], True, z["width"], zdt, plain=True))
         if z_err != 0.0:
             raise AssertionError(f"kernel {name} (zigzag) disagrees with its plain version "
                                  f"at the main path's shape: max_abs_err={z_err}")
         extra["zigzag"] = {
-            "width": z["width"], "blocks": z["src"].shape[0], "max_abs_err": z_err,
-            "ms": time_cuda(lambda: call_kernel(name, z["src"], True, z["width"], dtype),
+            "dtype": zdt, "width": z["width"], "blocks": z["src"].shape[0],
+            "max_abs_err": z_err,
+            "ms": time_cuda(lambda: call_kernel(name, z["src"], True, z["width"], zdt),
                             10, inner=10),
             "compose_ms": time_cuda(
-                lambda: compose_form(name, z["src"], True, z["width"], dtype), 10, inner=10)}
+                lambda: compose_form(name, z["src"], True, z["width"], zdt), 10, inner=10)}
     moved = rec["src_bytes"] + sum(o.numel() * o.element_size() for o in outs)
     for side in (rec["base"], param if per_block_ref else None):
         if side is not None:
@@ -851,6 +1449,59 @@ def dtype_rows(rng) -> list:
     return rows
 
 
+def dtype_rows_at_bound(rng, bound_ms: float = 0.1) -> list:
+    """Kernel rows 1, 3, 9 and 11 (unpack, undelta_pack, undelta_pack_orig,
+    delta_pack_orig) for u8, u16 and u64 at a size whose bytes bound is at
+    least `bound_ms`, so that a reading under half of its bound can be told
+    from launch latency; a clone of the values beside them. W = T/4 + 2."""
+    rows = []
+    for dtype in ("u8", "u16", "u64"):
+        t, nl, np_dt = layout.bit_width(dtype), layout.lanes(dtype), layout.np_dtype(dtype)
+        width = t // 4 + 2
+        plen = layout.packed_len(dtype, width)
+        block_bytes = (layout.BLOCK + plen + nl) * t // 8
+        blocks = -(-int(bound_ms * 1e-3 * HBM_BYTES_PER_S / block_bytes) // 1024) * 1024
+        words = rng.integers(0, 1 << min(t, 63), size=(1024, plen), dtype=np.uint64)
+        packed = torch.from_numpy(words.astype(np_dt)).cuda().repeat(blocks // 1024, 1)
+        base = torch.from_numpy(rng.integers(
+            0, 1 << min(t, 63), size=(1024, nl), dtype=np.uint64).astype(np_dt)
+        ).cuda().repeat(blocks // 1024, 1)
+        values = ck.undelta_pack_orig(packed, base, width, dtype)
+        sizes = {"packed": packed.numel() * t // 8, "base": base.numel() * t // 8,
+                 "values": values.numel() * t // 8}
+        row = {"dtype": dtype, "width": width, "blocks": blocks,
+               "clone_ms": time_cuda(lambda: torch.clone(values), 10, inner=10),
+               "clone_bound_ms": 2 * sizes["values"] / HBM_BYTES_PER_S * 1e3}
+        for name, src, param, moved in (
+                ("unpack", packed, None, sizes["packed"] + sizes["values"]),
+                ("undelta_pack", packed, base, sum(sizes.values())),
+                ("undelta_pack_orig", packed, base, sum(sizes.values())),
+                ("delta_pack_orig", values, False, sum(sizes.values()))):
+            got = call_kernel(name, src, param, width, dtype)
+            want = call_kernel(name, src[:CHECK_BLOCKS],
+                               param[:CHECK_BLOCKS] if isinstance(param, torch.Tensor)
+                               else param, width, dtype, plain=True)
+            head = tuple(g[:CHECK_BLOCKS] for g in got) if isinstance(got, tuple) \
+                else got[:CHECK_BLOCKS]
+            if max_abs_err(head, want) != 0.0:
+                raise AssertionError(f"{name} {dtype} at {blocks} blocks differs from its "
+                                     "plain version")
+            del got, want, head
+            row[name] = {"ms": time_cuda(lambda: call_kernel(name, src, param, width, dtype),
+                                         10, inner=10),
+                         "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes_moved": moved}
+        rows.append(row)
+        del packed, base, values
+    return rows
+
+
+def timed_entry(fn, reps: int = 3) -> dict:
+    """wall_and_busy of `fn` (which ends in a synchronise) plus the launches,
+    gather passes and host fetches of one call."""
+    _, counts = counted(fn)
+    return dict(wall_and_busy(fn, reps), **counts)
+
+
 def host_encode_costs(dev: dict) -> dict:
     """What the codecs' host round trips cost: one scalar pull of a width
     probe (beside the device time of its reduction), and for rle / dict the
@@ -879,24 +1530,24 @@ def host_encode_costs(dev: dict) -> dict:
 
 
 def phase_timing(paths: dict, read_launches: dict, encode_state: dict,
-                 transposed_state: dict, worst: dict, smi: str) -> list:
+                 transposed_state: dict, worst: dict, smi: str, entries: dict) -> list:
     timed_columns = ["headline_u32_w3", "ffor_u32", "delta_u32", "zdelta_u32"]
     with largest_launches() as seen:
         for column in timed_columns:
             fio_device.read_file_device(paths[column])
         unpack_orig_of_headline(paths["headline_u32_w3"], torch.device("cuda"))
     torch.cuda.synchronize()
-    rows = [kernel_row(name, seen[name], read_launches, worst, smi)
-            for name in READ_KERNELS]
+    rows = [dict(kernel_row(name, seen[name], read_launches, worst, smi),
+                 timed_on_path="read") for name in READ_KERNELS]
     seen.clear()
     seen = encode_state["seen"]
-    rows += [kernel_row(name, seen[name], encode_state["launches"], worst, smi,
-                        zigzag_rec=seen.get(name + "_zigzag"))
-             for name in ENCODE_PATH_KERNELS]
+    rows += [dict(kernel_row(name, seen[name], encode_state["launches"], worst, smi,
+                             zigzag_rec=seen.get(name + "_zigzag")),
+                  timed_on_path="encode") for name in ENCODE_PATH_KERNELS]
     seen.clear()
     seen = transposed_state["seen"]
-    rows += [kernel_row(name, seen[name], transposed_state["launches"], worst, smi)
-             for name in TRANSPOSED_KERNELS]
+    rows += [dict(kernel_row(name, seen[name], transposed_state["launches"], worst, smi),
+                  timed_on_path="transposed") for name in TRANSPOSED_KERNELS]
     seen.clear()
     rows.sort(key=lambda row: list(KERNELS).index(row["name"]))
 
@@ -926,9 +1577,63 @@ def phase_timing(paths: dict, read_launches: dict, encode_state: dict,
         encodes[column] = wall_and_busy(encode, 1 if column in ("rle_u32", "dict_u32") else 3)
         encodes[column].update(values=values.numel(), how=how)
     emit({"phase": "timing", "card": smi, "reads": reads, "encodes": encodes,
+          "entries": {label: timed_entry(fn) for label, fn in entries.items()},
           "host_round_trips": host_encode_costs(dev),
-          "orig_kernels_by_dtype": dtype_rows(np.random.default_rng(SEED + 2))})
+          "orig_kernels_by_dtype": dtype_rows(np.random.default_rng(SEED + 2)),
+          "kernels_by_dtype_at_0.1ms_bound": dtype_rows_at_bound(
+              np.random.default_rng(SEED + 6))})
     return rows
+
+
+def slice_entries(alp_state, table, files, read_paths) -> dict:
+    """label -> callable (ending in a synchronise) of every entry of the float,
+    table, multi-file and scan paths that the timing phase measures."""
+    tpath = table["path"]
+    all_files = files["shards"] + files["others"]
+
+    def synced(fn):
+        def run():
+            fn()
+            torch.cuda.synchronize()
+        return run
+
+    def drain():
+        for _ in fio_device.iter_files_device(all_files):
+            pass
+
+    entries = {f"read_file_device[{name}]": synced(
+        lambda path=path: fio_device.read_file_device(path))
+        for name, path in alp_state["paths"].items()}
+    entries.update({f"read_column_device[{name}]": synced(
+        lambda name=name: fio_device.read_column_device(tpath, name))
+        for name in table["columns"]})
+    entries.update({
+        "read_files_device[20 files]": synced(lambda: fio_device.read_files_device(all_files)),
+        "iter_files_device[20 files]": synced(drain),
+        "scan_table": synced(lambda: analytics.scan_table(tpath)),
+        "scan_column[headline_u32_w3]": synced(
+            lambda: analytics.scan_column(read_paths["headline_u32_w3"])),
+        "scan_column[delta_u32]": synced(lambda: analytics.scan_column(read_paths["delta_u32"])),
+        "scan_column[16 shards]": synced(lambda: analytics.scan_column(files["shards"])),
+        "scan_column[price]": synced(lambda: analytics.scan_column(tpath, "price")),
+        "count_where[qty gt]": synced(
+            lambda: analytics.count_where(tpath, "gt", 1_000_000_500, column="qty")),
+        "count_where[price le]": synced(
+            lambda: analytics.count_where(tpath, "le", 50_000.25, column="price")),
+        "count_where[day ge]": synced(lambda: analytics.count_where(
+            tpath, "ge", np.datetime64("2020-02-29"), column="day")),
+        "count_where[cur eq]": synced(
+            lambda: analytics.count_where(tpath, "eq", "JPY", column="cur")),
+        "count_where[zone-resolved]": synced(
+            lambda: analytics.count_where(tpath, "lt", 2_000_000_000, column="qty")),
+        "scan_where[price gt]": synced(
+            lambda: analytics.scan_where(tpath, "gt", 75_000.5, column="price")),
+        "scan_where[price where cur eq]": synced(lambda: analytics.scan_where(
+            tpath, "eq", "EUR", column="price", where="cur")),
+        "scan_where[key where qty ge]": synced(lambda: analytics.scan_where(
+            tpath, "ge", 1_000_000_900, column="key", where="qty")),
+    })
+    return entries
 
 
 def main() -> int:
@@ -943,24 +1648,52 @@ def main() -> int:
     worst = phase_kernels(rng)
     columns = make_columns(rng, 1)
     with tempfile.TemporaryDirectory(prefix="fastlanes_smoke_") as tmp:
-        read_state = phase_read(columns, tmp)
-        missing = [k for k in READ_KERNELS if read_state["launches"][k] == 0]
-        if missing:
-            raise AssertionError(f"the reads launched no {missing} kernel")
-        encode_state = phase_encode(columns)
-        missing = [k for k in ENCODE_PATH_KERNELS if encode_state["launches"][k] == 0]
-        if missing:
-            raise AssertionError(f"the encodes launched no {missing} kernel")
-        transposed_state = phase_transposed(encode_state)
-        missing = [k for k in TRANSPOSED_KERNELS if transposed_state["launches"][k] == 0]
-        if missing:
-            raise AssertionError(f"the transposed-order entries launched no {missing} kernel")
-        del columns
+        # every path is driven with the launch counts set to 0 just before it
+        # and read just after; then every (kernel, dtype) shape the path
+        # launched is held against the plain version on the same tensors
+        by_path, shapes_by_path = {}, {}
+
+        def drive(path_name, phase, needs):
+            with largest_launches(per_dtype=True) as seen:
+                state = phase()
+            by_path[path_name] = state["launches"]
+            missing = [k for k in needs if state["launches"][k] == 0]
+            if missing:
+                raise AssertionError(f"the {path_name} path launched no {missing} kernel")
+            shapes_by_path[path_name] = hold_path_shapes(path_name, seen)
+            return state
+
+        read_state = drive("read", lambda: phase_read(columns, tmp), READ_KERNELS)
+        encode_state = drive("encode", lambda: phase_encode(columns), ENCODE_PATH_KERNELS)
+        transposed_state = drive("transposed", lambda: phase_transposed(encode_state),
+                                 TRANSPOSED_KERNELS)
         encode_state.pop("encoded")
+        alp_state = drive("alp", lambda: phase_alp(tmp, 1), ("unpack", "pack"))
+        alp_state.pop("columns")
+        table = drive("table", lambda: phase_table(tmp, 1),
+                      ("unpack", "unfor_pack", "undelta_pack_orig"))
+        files = drive("files", lambda: phase_files(tmp, 1), ("unpack", "unfor_pack"))
+        drive("scan", lambda: phase_scan(read_state["paths"], columns, table, files),
+              ("unpack", "unfor_pack", "undelta_pack", "unzdelta_pack",
+               "undelta_pack_orig"))
+        del columns
+        files.pop("shard_values")
+        entries = slice_entries(alp_state, table, files, read_state["paths"])
+        table.pop("columns")
         rows = phase_timing(read_state["paths"], read_state["launches"], encode_state,
-                            transposed_state, worst, info["nvidia_smi"])
+                            transposed_state, worst, info["nvidia_smi"], entries)
         if [row["name"] for row in rows] != list(KERNELS):
             raise AssertionError(f"kernel rows: {[row['name'] for row in rows]}")
+    for row in rows:
+        # the count over every driven path, and path by path beside the
+        # shapes held there; `shape`, `ms` and the bounds are those of the
+        # largest launch of the path named in `timed_on_path` alone
+        row["launches_by_path"] = {
+            p: {"launches": c[row["name"]], "shapes": shapes_by_path[p][row["name"]]}
+            for p, c in by_path.items() if c[row["name"]]}
+        row["launches"] = sum(v["launches"] for v in row["launches_by_path"].values())
+        if row["launches"] == 0:
+            raise AssertionError(f"kernel {row['name']} was launched on no driven path")
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})

@@ -2,9 +2,10 @@
 
 The FastLanes compression layout (Afroozeh & Boncz, VLDB 2023) over
 1024-value blocks of u8/u16/u32/u64 on an NVIDIA Hopper GPU: the FLT file
-format on the host, device-side column reads, and device-side column encode
-through the codec classes, with the encode and decode kernels hand-written
-in CUDA. Imports torch and numpy, never jax, and nothing of the JAX package.
+format on the host (single columns and tables), device-side column reads
+(one file, many files, table columns; integer, string and float columns),
+device-side column encode through the codec classes, and scans that consume
+a device read, with the encode and decode kernels hand-written in CUDA. Imports torch and numpy, never jax, and nothing of the JAX package.
 
 Device rule: every entry that touches the device takes `device=None`, which
 means the GPU and raises RuntimeError when there is none; the CPU is used
@@ -17,8 +18,12 @@ Layer map (same module names as fastlanes_tpu):
   ops/       plain PyTorch codecs over signed bit patterns
   kernels/   CUDA kernels (csrc/codecs.cu) and their wrappers
   models/    composed codecs (BitPacked/FFoR/Delta/ZDelta/RLE/Dict/auto)
+  alp        ALP / ALP_RD float codecs: host encoder, host and device decoders
   fio        FLT file format, host writer and reader
+  fio_table  FLT table container (named columns, strings, nulls), host side
   fio_device device-side FLT reads
+  analytics  scans over compressed columns (scan_column, scan_table,
+             count_where, scan_where)
   convert    array forms of the JAX package <-> tensors of the port
 """
 
@@ -36,6 +41,9 @@ __all__ = [
     "unchecked_unpack_single", "auto_encode", "get_codec",
     "write_file", "read_file", "read_blocks", "read_single",
     "read_blocks_device", "read_file_device", "NullableColumn",
+    "write_table", "read_table", "read_column", "TableWriter", "StringColumn",
+    "read_files_device", "iter_files_device", "read_column_device",
+    "scan_column", "scan_table", "count_where", "scan_where",
     "from_reference", "to_reference", "__version__",
 ]
 
@@ -57,7 +65,12 @@ _API_HOME = {
     **{n: "models.codecs" for n in ("auto_encode", "get_codec")},
     **{n: "fio" for n in ("write_file", "read_file", "read_blocks", "read_single")},
     **{n: "fio_device" for n in ("read_blocks_device", "read_file_device",
-                                 "NullableColumn")},
+                                 "NullableColumn", "read_files_device",
+                                 "iter_files_device", "read_column_device")},
+    **{n: "fio_table" for n in ("write_table", "read_table", "read_column",
+                                "TableWriter", "StringColumn")},
+    **{n: "analytics" for n in ("scan_column", "scan_table", "count_where",
+                                "scan_where")},
     **{n: "convert" for n in ("from_reference", "to_reference")},
 }
 

@@ -1,11 +1,16 @@
-"""ALP: Adaptive Lossless floating-Point compression, host side only.
+"""ALP: Adaptive Lossless floating-Point compression.
 
 The NumPy encoder and decoder of the ALP and ALP_RD float codecs (Afroozeh,
 Kuffo & Boncz, SIGMOD 2023), which fio.py needs to write and read the whole
-FLT byte format. It is the PyTorch port's own copy of the host functions of
-fastlanes_tpu/alp.py; the device decoders (`decode_device`,
-`rd_decode_device` and the integer-domain division helpers they use) are not
-ported yet, so fio_device raises NotImplementedError on alp/alprd chunks.
+FLT byte format, and the device decoders (`decode_device`,
+`rd_decode_device`) on torch tensors. It is the PyTorch port's own copy of
+fastlanes_tpu/alp.py. The integer-domain division helpers of that module
+(`_div_pow10_f32_device`, `_div_pow10_f64_limbs`) exist because a TPU has no
+correctly rounded divide; a CPU and a Hopper GPU divide correctly rounded in
+f32 and f64 (torch's eager tensor / tensor; nothing on the path is built with
+fast-math), so `decode_device` is the spec's one IEEE division as written.
+One trap: torch divides a CUDA tensor by a PYTHON scalar as a multiply by
+the reciprocal, which is not that division; see `decode_device`.
 
 Scheme (self-consistent spec):
 
@@ -29,6 +34,7 @@ a u64 payload.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # exponent search space (the ALP paper's ranges): 10^e exactly representable
 # in the float64 encode domain
@@ -153,6 +159,52 @@ def decode_np(shifted: np.ndarray, e: int, f: int, reference: int,
     return out
 
 
+def _exc_index(exc_pos, device) -> torch.Tensor:
+    """Exception positions (uint32 on the wire) as an int64 index tensor."""
+    return torch.from_numpy(np.asarray(exc_pos).astype(np.int64)).to(device)
+
+
+def _host_values(arr: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(arr)).to(device)  # np.array copies
+
+
+def decode_device(shifted: torch.Tensor, e: int, f: int, reference: int,
+                  np_float, exc_pos=None, exc_val=None) -> torch.Tensor:
+    """Device twin of decode_np on a tensor: unshift -> convert -> ONE
+    correctly rounded IEEE division -> scatter-patch, bit-exact with the
+    host spec. `shifted` is the unpacked unsigned payload (uint32 for f32,
+    uint64 for f64; the signed tensor with the same bits is accepted);
+    returns float32 / float64 of the same shape on the same device.
+
+    The int -> float step is exact only inside the encoder's bounds
+    (|i * 10^f| < 2^24 for f32 through int32, |i| <= 2^52 for f64 through
+    int64), so it converts from the SIGNED integer after the wrapping add of
+    `reference`, never from the unsigned payload."""
+    if np.dtype(np_float) == np.float64:
+        int_dt, float_dt, bits = torch.int64, torch.float64, 64
+    else:
+        int_dt, float_dt, bits = torch.int32, torch.float32, 32
+    if shifted.dtype.itemsize * 8 != bits or shifted.dtype.is_floating_point:
+        raise ValueError(f"expected a {bits}-bit integer payload for "
+                         f"{np.dtype(np_float).name}, got {shifted.dtype}")
+    ref = int(reference) & ((1 << bits) - 1)
+    if ref >= 1 << (bits - 1):
+        ref -= 1 << bits
+    ints = shifted.view(int_dt) + ref  # wraps mod 2^bits
+    # The divisor is a TENSOR on the payload's device, never a Python number:
+    # torch's CUDA kernel for `tensor / python_scalar` multiplies by the
+    # reciprocal (two roundings, one ulp off for a fifth of the decimal
+    # values at d=1, measured on an H100), while tensor / tensor is the IEEE
+    # division the spec asks for.
+    pow10 = torch.tensor(float(_pow10(e - f, np_float)), dtype=float_dt,
+                         device=shifted.device)
+    out = ints.to(float_dt) / pow10
+    if exc_pos is not None and len(exc_pos):
+        vals = _host_values(np.asarray(exc_val, np_float), out.device)
+        out.view(-1).index_copy_(0, _exc_index(exc_pos, out.device), vals)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # ALP_RD: the "real doubles" fallback (ALP paper §4.3) for floats that are
 # NOT decimal-like (the plain ALP scheme would emit ~100% exceptions).
@@ -234,3 +286,32 @@ def rd_decode_np(left_idx, rights, dictionary, right_bits: int, np_float,
     bits = (lefts << u_dt(right_bits)) | rights.astype(u_dt)
     return bits.view(np_float)
 
+
+
+def rd_decode_device(left_idx: torch.Tensor, rights: torch.Tensor, dictionary,
+                     right_bits: int, np_float, exc_pos=None,
+                     exc_val=None) -> torch.Tensor:
+    """Device twin of rd_decode_np: dictionary gather + exception lefts
+    scattered + shift/or + a view to the float dtype. `left_idx` is the
+    unpacked uint16 index stream, `rights` the unpacked uint32/uint64 right
+    parts, `dictionary` the host uint32 lefts, `exc_val` the exception
+    lefts. All integer work runs on the signed tensors with the same bits
+    (left shift and `or` do not see the sign)."""
+    f64 = np.dtype(np_float) == np.float64
+    if f64 and right_bits < 32:
+        raise ValueError("f64 ALP_RD cut keeps right_bits >= 32")
+    int_dt, float_dt = ((torch.int64, torch.float64) if f64
+                        else (torch.int32, torch.float32))
+    device = rights.device
+    # lefts are < 2^32: int64 holds them as they are, int32 as bit patterns
+    table = np.asarray(dictionary, np.uint32)
+    table = table.astype(np.int64) if f64 else table.view(np.int32)
+    lefts = torch.take(_host_values(table, device),
+                       left_idx.view(torch.int16).to(torch.int64))
+    if exc_pos is not None and len(exc_pos):
+        ev = np.asarray(exc_val, np.uint32)
+        ev = ev.astype(np.int64) if f64 else ev.view(np.int32)
+        lefts.view(-1).index_copy_(0, _exc_index(exc_pos, device),
+                                   _host_values(ev, device))
+    bits = (lefts << right_bits) | rights.view(int_dt)
+    return bits.view(float_dt)

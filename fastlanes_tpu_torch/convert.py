@@ -81,11 +81,18 @@ def _param_dtype(key: str, codec: str, dtype: str):
     return None
 
 
+#: params of an alp Encoded that stay on the host as they are on both sides:
+#: the exception positions and values (numpy), the value dtype's name, the
+#: shape. (`e`, `f` and `reference` are ints like any scalar param.)
+_HOST_PARAMS = ("exc_pos", "exc_val", "vtype", "shape")
+
+
 def encoded_from_reference(enc, device=None):
     """An `Encoded` of the JAX package, its fields as numpy arrays (anything
     with `codec`, `dtype`, `width`, `n_blocks`, `payload` and `params`; u64
-    payloads and bases as `uint64` or as the limb image), -> the port's
-    `Encoded` with payload and array params on `device`."""
+    payloads and bases as `uint64` or as the limb image, the payload of an
+    alp f64 column included), -> the port's `Encoded` with payload and array
+    params on `device`; an alp Encoded's exceptions stay host numpy arrays."""
     from .models.codecs import Encoded
 
     dtype = layout.canon_dtype(enc.dtype)
@@ -97,6 +104,9 @@ def encoded_from_reference(enc, device=None):
         for key, val in enc.params.items():
             if isinstance(val, (int, np.integer)):
                 params[key] = int(val)
+                continue
+            if key in _HOST_PARAMS:
+                params[key] = val if isinstance(val, (str, tuple)) else np.asarray(val)
                 continue
             pdt = _param_dtype(key, enc.codec, dtype)
             arr = np.asarray(val)

@@ -1,20 +1,25 @@
 """Device-side FLT reads: host IO ships only compressed bytes; the GPU
 decodes.
 
-The port of fastlanes_tpu/fio_device.py for single-file reads: for a width-W
-u32 column only W/32 of the raw bytes cross PCIe, and the CUDA decode kernels
-(kernels/cuda_codecs.py) expand them to full values in device memory.
+The port of fastlanes_tpu/fio_device.py: for a width-W u32 column only W/32
+of the raw bytes cross PCIe, and the CUDA decode kernels
+(kernels/cuda_codecs.py) expand them to full values in device memory. One
+file (`read_blocks_device`, `read_file_device`), many files with cross-file
+batched launches (`read_files_device`), a pipelined stream of files
+(`iter_files_device`) and one column of a table file (`read_column_device`).
 
 Every entry takes `device=None`: None means the GPU, and raises
 RuntimeError when there is none; `device="cpu"` runs the plain PyTorch
 versions on the host. Results are native unsigned torch tensors (u64
 included: the port has no limb planes), signed after a zigzag/viewu
-transform, so `tensor.cpu().numpy()` has the dtype and bytes of the host
-`fio.read_file`.
+transform, float32/float64 for a float column, so `tensor.cpu().numpy()`
+has the dtype and bytes of the host `fio.read_file`.
 
-Codecs: bitpack, ffor, delta, zdelta, rle, dict: every codec
-`fio.write_file(codec="auto")` can choose for an integer column. Float
-columns (alp, alprd) are not ported yet and raise NotImplementedError.
+Codecs: bitpack, ffor, delta, zdelta, rle, dict, alp, alprd: every codec
+`fio.write_file(codec="auto")` can choose. The float codecs run the same
+`unpack` kernel on their integer streams and then alp.decode_device /
+alp.rd_decode_device (plain torch: one IEEE division or a shift/or, and one
+scatter of the exceptions).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import alp as alp_mod
 from . import fio, transforms
 from .core import layout
 from .kernels import cuda_codecs as ck
@@ -32,9 +38,10 @@ from .ops import ffor as ops_ffor
 
 
 class NullableColumn:
-    """Device-decoded nullable column: decoded values plus a device validity
-    mask (True = present). The filler values at null positions are real
-    neighbours (fio null compression); consumers must gate on `valid`."""
+    """Device-decoded nullable column: decoded values (tensor or
+    StringColumn) plus a device validity mask (True = present). The filler
+    values at null positions are real neighbours (fio null compression);
+    consumers must gate on `valid`."""
 
     def __init__(self, values, valid):
         self.values = values
@@ -46,7 +53,11 @@ class NullableColumn:
 
     def materialize(self) -> np.ma.MaskedArray:
         """Host masked array (one device fetch of values + mask)."""
+        from . import fio_table
+
         mask = ~self.valid.cpu().numpy()
+        if isinstance(self.values, fio_table.StringColumn):
+            return np.ma.MaskedArray(self.values.materialize(), mask=mask)
         return np.ma.MaskedArray(self.values.cpu().numpy(), mask=mask)
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
@@ -86,13 +97,6 @@ def _rows_to_device(parts, device) -> torch.Tensor:
     return out
 
 
-def _not_ported(codec: str):
-    return NotImplementedError(
-        f"device decode of {codec!r} chunks is not ported to "
-        "fastlanes_tpu_torch yet (ROADMAP.md, Queue 1: alp/alprd device "
-        "decode); read the file with fastlanes_tpu_torch.fio.read_file")
-
-
 def _decode_chunk_device(meta: dict, raw, n_blocks: int, dtype: str, device,
                          natural=False):
     nl = layout.lanes(dtype)
@@ -105,8 +109,18 @@ def _decode_chunk_device(meta: dict, raw, n_blocks: int, dtype: str, device,
         return _decode_rle_batched([(meta, raw)], dtype, device)
     if codec == "dict":
         return _decode_dict_batched([(meta, raw)], dtype, device)
-    if codec in ("alp", "alprd"):
-        raise _not_ported(codec)
+    if codec == "alp":
+        return _decode_alp_batched([(meta, raw)], dtype, device)
+    if codec == "alprd":
+        np_float = fio._VTYPES[meta["vtype"]]
+        packed_r, packed_i, exc_pos, exc_left = fio._split_alprd_payload(
+            meta, raw, n_blocks, dtype)
+        rights = ck.unpack(_to_device(packed_r, device), w, dtype)
+        left_idx = ck.unpack(_to_device(packed_i, device), meta["idx_width"],
+                             "u16")
+        return alp_mod.rd_decode_device(
+            left_idx, rights, np.asarray(meta["dict"], np.uint32), w,
+            np_float, exc_pos, exc_left)
     if codec in ("delta", "zdelta"):
         base_np, packed_np = _parse_delta_payload(raw, n_blocks, dtype, nl,
                                                   np_dt, plen)
@@ -153,7 +167,8 @@ def _decode_packed_device(codec, packed, base, w, ref_val, dtype,
 
 
 #: codecs whose payloads batch across chunks (same width) into ONE kernel
-#: launch and one host-to-device transfer: every integer codec. rle always
+#: launch and one host-to-device transfer: every integer codec (alp chunks
+#: batch too, under their own signature; alprd chunks do not). rle always
 #: batches (the run-index stream is W=1 by construction; run values
 #: concatenate into one flat gather). A run of ffor chunks carries its
 #: per-chunk references as one (B,) per-block reference beside the payload.
@@ -163,7 +178,32 @@ _BATCHABLE = ("bitpack", "ffor", "delta", "zdelta", "rle", "dict")
 def _group_sig(meta):
     if meta["codec"] in _BATCHABLE:
         return (meta["codec"], meta["width"])
+    if meta["codec"] == "alp":
+        # alp chunks batch when the whole decode recipe matches; exception
+        # positions are chunk-relative and get block offsets when merged
+        return ("alp", meta["width"], meta["e"], meta["f"],
+                meta["reference"], meta["vtype"])
     return None
+
+
+def _decode_alp_batched(run, dtype, device):
+    """One unpack launch + one scale/scatter pass for a run of alp chunks
+    sharing (width, e, f, reference, vtype)."""
+    meta0 = run[0][0]
+    np_float = fio._VTYPES[meta0["vtype"]]
+    packeds, poss, vals_list = [], [], []
+    block_off = 0
+    for meta, raw in run:
+        packed, exc_pos, exc_val = fio._split_alp_payload(
+            meta, raw, meta["n_blocks"], dtype, np_float)
+        packeds.append(packed)
+        poss.append(np.asarray(exc_pos, np.int64) + block_off * layout.BLOCK)
+        vals_list.append(exc_val)
+        block_off += meta["n_blocks"]
+    shifted = ck.unpack(_rows_to_device(packeds, device), meta0["width"], dtype)
+    return alp_mod.decode_device(
+        shifted, meta0["e"], meta0["f"], meta0["reference"], np_float,
+        np.concatenate(poss), np.concatenate(vals_list))
 
 
 def _gather_flat(values_np: np.ndarray, idx: torch.Tensor, offsets: np.ndarray,
@@ -256,6 +296,8 @@ def _decode_run_batched(sig, run, dtype, device, natural=False):
         return _decode_rle_batched(run, dtype, device)
     if codec == "dict":
         return _decode_dict_batched(run, dtype, device)
+    if codec == "alp":
+        return _decode_alp_batched(run, dtype, device)
     w = sig[1]
     plen = layout.packed_len(dtype, w)
     base = ref = None
@@ -278,19 +320,25 @@ def _decode_run_batched(sig, run, dtype, device, natural=False):
                                  natural=natural)
 
 
-def _concat_parts(parts, dtype, device):
-    """Concatenate decoded chunk outputs along the block axis."""
+_FLOAT_DTYPES = {"f32": torch.float32, "f64": torch.float64}
+
+
+def _concat_parts(parts, dtype, device, vtype=None):
+    """Concatenate decoded chunk outputs along the block axis. No parts give
+    an empty tensor of the column's dtype (float for a float `vtype`)."""
     if not parts:
-        return torch.zeros((0, layout.BLOCK), dtype=eng.torch_dtype(dtype),
-                           device=device)
+        return torch.zeros((0, layout.BLOCK), device=device,
+                           dtype=_FLOAT_DTYPES.get(vtype) or eng.torch_dtype(dtype))
     if len(parts) == 1:
         return parts[0]
+    if parts[0].dtype.is_floating_point:  # alp/alprd column: real floats
+        return torch.cat(parts, dim=0)
     return eng.from_vec(torch.cat([eng.to_vec(p, dtype) for p in parts], dim=0),
                         dtype)
 
 
 def _read_chunks_device(f, chunks, base_off: int, chunk_blocks: int,
-                        start: int, stop: int, dtype: str, device):
+                        start: int, stop: int, dtype: str, device, vtype=None):
     """Device twin of fio.read_chunk_range: only covering chunks decode, and
     consecutive same-(codec, width) chunks decode in ONE batched launch
     (_decode_chunks_grouped)."""
@@ -306,9 +354,9 @@ def _read_chunks_device(f, chunks, base_off: int, chunk_blocks: int,
         f.seek(base_off + meta["offset"])
         covering.append((meta, f.read(meta["nbytes"])))
     if not covering:
-        return _concat_parts([], dtype, device)
+        return _concat_parts([], dtype, device, vtype)
     parts = _decode_chunks_grouped(covering, dtype, device)
-    blocks = _concat_parts(parts, dtype, device)
+    blocks = _concat_parts(parts, dtype, device, vtype)
     # trim to the requested block range
     return blocks[start - first_start:stop - first_start]
 
@@ -347,8 +395,6 @@ def read_blocks_device(path: str, start: int = 0, stop: Optional[int] = None,
     GPU; raises without one), or a NullableColumn for a nullable column."""
     device = eng.resolve_device(device)
     header = fio.read_header(path)
-    if "vtype" in header:
-        raise _not_ported(header["chunks"][0]["codec"] if header["chunks"] else "alp")
     dtype = header["dtype"]
     n = header["n_blocks"]
     stop = n if stop is None else min(stop, n)
@@ -357,7 +403,7 @@ def read_blocks_device(path: str, start: int = 0, stop: Optional[int] = None,
     with open(path, "rb") as f:
         blocks = _read_chunks_device(f, header["chunks"], fio._payload_base(path),
                                      header["chunk_blocks"], start, stop, dtype,
-                                     device)
+                                     device, header.get("vtype"))
     out = _apply_transform_device(blocks, header.get("transform"), dtype)
     if "nulls" in header and stop > start:
         return _wrap_column_nulls(out, path, fio._payload_base(path),
@@ -377,3 +423,152 @@ def read_file_device(path: str, device=None):
             valid = valid.reshape(-1)[:nv]
         return NullableColumn(_trim_flat(blocks.values, nv), valid)
     return _trim_flat(blocks, nv)
+
+
+def _file_result(path, header, parts, device):
+    """Decoded chunk parts of one whole file -> what read_file_device
+    returns for it: transform applied, flat columns trimmed, nulls wrapped."""
+    dtype = header["dtype"]
+    blocks = _concat_parts(parts, dtype, device, header.get("vtype"))
+    blocks = _apply_transform_device(blocks, header.get("transform"), dtype)
+    result = _trim_flat(blocks, header.get("n_values"))
+    if "nulls" in header:
+        result = _wrap_column_nulls(
+            result, path, fio._payload_base(path), header["nulls"],
+            0, header["n_blocks"], header.get("n_values"), device)
+    return result
+
+
+def read_files_device(paths, device=None) -> dict:
+    """Whole-file device decode of MANY FLT files with CROSS-FILE batched
+    launches: every chunk sharing a (dtype, codec, width[, alp recipe])
+    signature, whichever file it came from, decodes in ONE kernel launch,
+    and the per-file outputs are sliced back out. A 100-shard dataset of
+    same-codec columns costs one decode launch and one slice per file.
+    ffor chunks merge too: a merged run carries one reference per block
+    beside the payload (kernels.cuda_codecs.unfor_pack), where the JAX
+    package keeps ffor chunk by chunk. Returns {path: decoded} with the
+    per-file semantics of read_file_device (transform applied, flat columns
+    trimmed, nullable columns wrapped). Duplicate paths decode once."""
+    device = eng.resolve_device(device)
+    paths = list(dict.fromkeys(paths))  # dedupe, keep order
+    headers, file_chunks = {}, {}
+    for path in paths:
+        header, raws = _read_raw_file(path)
+        headers[path] = header
+        file_chunks[path] = list(zip(header["chunks"], raws))
+
+    # group every batchable chunk across files by (dtype, signature); slots
+    # keep (path, chunk index) so merged outputs route back in order
+    groups, singles = {}, []
+    for path in paths:
+        dtype = headers[path]["dtype"]
+        for ci, (meta, raw) in enumerate(file_chunks[path]):
+            sig = _group_sig(meta)
+            if sig is None:
+                singles.append((path, ci, meta, raw))
+            else:
+                groups.setdefault((dtype, sig), []).append((path, ci, meta, raw))
+
+    decoded = {}  # (path, ci) -> device part
+    for (dtype, sig), members in groups.items():
+        if len(members) == 1:
+            singles.append(members[0])
+            continue
+        merged = _decode_run_batched(sig, [(m, r) for _, _, m, r in members],
+                                     dtype, device)
+        off = 0
+        for path, ci, meta, _ in members:
+            n = meta["n_blocks"]
+            decoded[(path, ci)] = merged[off:off + n]
+            off += n
+    for path, ci, meta, raw in singles:
+        decoded[(path, ci)] = _decode_chunk_device(
+            meta, raw, meta["n_blocks"], headers[path]["dtype"], device)
+
+    return {path: _file_result(
+        path, headers[path],
+        [decoded[(path, ci)] for ci in range(len(file_chunks[path]))], device)
+        for path in paths}
+
+
+def _read_raw_file(path: str):
+    """Host side of the pipeline: header + every chunk's raw bytes."""
+    header = fio.read_header(path)
+    base = fio._payload_base(path)
+    raws = []
+    with open(path, "rb") as f:
+        for meta in header["chunks"]:
+            f.seek(base + meta["offset"])
+            raws.append(f.read(meta["nbytes"]))
+    return header, raws
+
+
+def iter_files_device(paths, device=None, prefetch: int = 2):
+    """Pipelined multi-file device decode: yields (path, decoded) in order,
+    with the host IO of upcoming files prefetched on one reader thread while
+    the GPU decodes the current one (kernel launches are asynchronous, so
+    the decode of file k overlaps the read of file k+1). The streaming form
+    of read_file_device for feeding a consumer from many FLT files. The
+    copies to the device are ordinary pageable ones on the current stream."""
+    import collections
+    from concurrent.futures import ThreadPoolExecutor
+
+    device = eng.resolve_device(device)
+    paths = list(paths)
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        pending = collections.deque()
+        it = iter(paths)
+        for _ in range(max(1, prefetch)):
+            p = next(it, None)
+            if p is not None:
+                pending.append((p, ex.submit(_read_raw_file, p)))
+        while pending:
+            path, fut = pending.popleft()
+            header, raws = fut.result()
+            nxt = next(it, None)
+            if nxt is not None:
+                pending.append((nxt, ex.submit(_read_raw_file, nxt)))
+            parts = _decode_chunks_grouped(list(zip(header["chunks"], raws)),
+                                           header["dtype"], device)
+            yield path, _file_result(path, header, parts, device)
+
+
+def read_column_device(path: str, name: str, start: int = 0,
+                       stop: Optional[int] = None, device=None):
+    """Decode one column of an FLTTAB table file on the accelerator: touches
+    only the covering chunks, applies the column's transform, and (for full
+    reads of flat-written columns) trims to exact length. Returns a tensor,
+    a `fio_table.StringColumn` (u32 codes on the device, the sorted
+    dictionary on the host) or a NullableColumn around either. Logical
+    dtypes (bool, datetime64, timedelta64) come back as their integer
+    storage; `fio_table.read_column` gives the host view."""
+    from . import fio_table
+
+    device = eng.resolve_device(device)
+    header = fio_table.read_table_header(path)
+    col = fio_table._col_meta(header, name)
+    dtype = col["dtype"]
+    n = col["n_blocks"]
+    full = start == 0 and stop is None
+    stop = n if stop is None else min(stop, n)
+    if not 0 <= start <= stop:
+        raise IndexError(f"bad block range [{start}, {stop})")
+    base_off = fio.payload_base_of(path, fio_table.MAGIC)
+    with open(path, "rb") as f:
+        blocks = _read_chunks_device(f, col["chunks"], base_off,
+                                     col["chunk_blocks"], start, stop, dtype,
+                                     device, col.get("vtype"))
+        dictionary = (fio_table._load_str_dict(f, base_off, col)
+                      if col.get("vtype") == "str" else None)
+    out = _apply_transform_device(blocks, col.get("transform"), dtype)
+    if full:
+        out = _trim_flat(out, col.get("n_values"))
+    if dictionary is not None:
+        # codes stay on the device; predicates run as code compares
+        out = fio_table.StringColumn(out, dictionary)
+    if "nulls" in col and stop > start:
+        return _wrap_column_nulls(
+            out, path, base_off, col["nulls"], start, stop,
+            col.get("n_values") if full else None, device)
+    return out

@@ -30,6 +30,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from .. import alp as alp_mod
 from .. import fio
 from ..core import layout
 from ..kernels import cuda_codecs as ck
@@ -278,21 +279,64 @@ class DictCodec(Codec):
         return eng.take_flat(dictionary, codes, offsets, enc.dtype)
 
 
+class ALPCodec(Codec):
+    """ALP float compression driver (see fastlanes_tpu_torch.alp): host
+    encode (float64 scaling + exact-roundtrip exception detection, then the
+    `pack` kernel on the device), device decode (unpack -> unshift -> one
+    IEEE division -> exception scatter). `dtype` here is the VALUE dtype
+    ('f32'/'f64'); the wire dtype is u32/u64. The exceptions stay on the
+    host as numpy arrays, as alp.decode_device takes them."""
+
+    name = "alp"
+
+    def __init__(self, dtype="f32", width=None):
+        if str(dtype) not in ("f32", "f64", "float32", "float64"):
+            raise ValueError(f"ALPCodec takes 'f32'/'f64', got {dtype!r}")
+        self.vtype = "f32" if str(dtype) in ("f32", "float32") else "f64"
+        self.dtype = "u32" if self.vtype == "f32" else "u64"
+        self.width = width
+
+    def encode(self, values, device=None) -> Encoded:
+        device = eng.resolve_device(device)
+        if isinstance(values, torch.Tensor):
+            values = values.cpu().numpy()
+        arr = np.asarray(values)
+        want = np.float32 if self.vtype == "f32" else np.float64
+        if arr.dtype != want:
+            raise ValueError(f"expected {want.__name__} values, got {arr.dtype}")
+        if arr.ndim not in (1, 2) or arr.shape[-1] != layout.BLOCK:
+            raise ValueError(f"values must be (B, {layout.BLOCK}) or "
+                             f"({layout.BLOCK},); arbitrary lengths go through "
+                             f"fio.write_file (it pads)")
+        enc = alp_mod.encode_np(arr)
+        w = enc["width"]
+        ints = torch.from_numpy(np.ascontiguousarray(enc["ints"])).to(device)
+        return Encoded(self.name, self.dtype, w, 1 if arr.ndim == 1 else arr.shape[0],
+                       ck.pack(ints, w, self.dtype), params={
+                           "e": enc["e"], "f": enc["f"],
+                           "reference": enc["reference"],
+                           "exc_pos": enc["exc_pos"], "exc_val": enc["exc_val"],
+                           "vtype": self.vtype, "shape": arr.shape})
+
+    def decode(self, enc: Encoded):
+        p = enc.params
+        np_float = np.float32 if p["vtype"] == "f32" else np.float64
+        shifted = ck.unpack(enc.payload, enc.width, enc.dtype)
+        out = alp_mod.decode_device(shifted, p["e"], p["f"], p["reference"],
+                                    np_float, p["exc_pos"], p["exc_val"])
+        return out.reshape(tuple(p["shape"]))
+
+
 _CODECS = {c.name: c for c in (BitPackedCodec, FFoRCodec, DeltaCodec, ZDeltaCodec,
-                               RLECodec, DictCodec)}
+                               RLECodec, DictCodec, ALPCodec)}
 
 
 def get_codec(name: str, dtype, **kw) -> Codec:
-    if name == "alp":
-        raise NotImplementedError(
-            "the ALP float codec is not ported to fastlanes_tpu_torch "
-            "yet: it needs the device decode of alp chunks (ROADMAP.md, Open "
-            "items: alp/alprd device decode)")
     try:
         cls = _CODECS[name]
     except KeyError:
         raise ValueError(
-            f"unknown codec {name!r}; have {sorted([*_CODECS, 'alp'])}") from None
+            f"unknown codec {name!r}; have {sorted(_CODECS)}") from None
     return cls(dtype, **kw)
 
 

@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 
 from fastlanes_tpu import alp as jalp
+from fastlanes_tpu import fio_table as jfio_table
 from fastlanes_tpu import transforms as jtransforms
 from fastlanes_tpu import zonemaps as jzonemaps
 from fastlanes_tpu.core import layout as jlayout
@@ -13,6 +14,7 @@ from fastlanes_tpu.ref import numpy_ref as jref
 
 from fastlanes_tpu_torch import alp as talp
 from fastlanes_tpu_torch import convert
+from fastlanes_tpu_torch import fio_table as tfio_table
 from fastlanes_tpu_torch import transforms as ttransforms
 from fastlanes_tpu_torch import zonemaps as tzonemaps
 from fastlanes_tpu_torch.core import layout as tlayout
@@ -161,3 +163,38 @@ def test_alp_host_copy_agrees(fdt, rng):
     back = talp.rd_decode_np(got["left_idx"], got["rights"], got["dict"],
                              got["right_bits"], fdt, got["exc_pos"], got["exc_left"])
     same(back.view(udt), noise.view(udt))
+
+
+TABLE_CASES = {
+    "ints": lambda rng: {"a": rng.integers(0, 1 << 20, 3000).astype(np.uint32),
+                         "b": np.sort(rng.integers(-(1 << 40), 1 << 40, 3000))},
+    "floats": lambda rng: {"p": np.round(rng.uniform(0, 100, 2500), 2),
+                           "q": rng.standard_normal(2500).astype(np.float32)},
+    "strings": lambda rng: {"s": np.array(["x", "yy", "zzz"])[rng.integers(0, 3, 2100)],
+                            "n": np.ma.MaskedArray(np.arange(2100, dtype=np.uint16),
+                                                   mask=rng.random(2100) < 0.3)},
+    "logical": lambda rng: {"t": np.arange(1500).astype("datetime64[s]"),
+                            "f": rng.random(1500) < 0.5},
+    "empty": lambda rng: {"e": np.zeros(0, np.uint32), "g": np.zeros(0, np.float64)},
+}
+
+
+@pytest.mark.parametrize("chunk_blocks", [1, 2])
+@pytest.mark.parametrize("case", sorted(TABLE_CASES))
+def test_fio_table_copy_writes_the_same_bytes(tmp_path, rng, case, chunk_blocks):
+    """The table container's copy, as the FLT format's above: same header,
+    same bytes, and the module constants agree."""
+    cols = TABLE_CASES[case](rng)
+    pt, pj = str(tmp_path / "port.flt"), str(tmp_path / "ref.flt")
+    ht = tfio_table.write_table(pt, cols, chunk_blocks=chunk_blocks)
+    hj = jfio_table.write_table(pj, cols, chunk_blocks=chunk_blocks)
+    assert ht == hj
+    with open(pt, "rb") as ft, open(pj, "rb") as fj:
+        assert ft.read() == fj.read()
+    assert tfio_table.MAGIC == jfio_table.MAGIC
+    assert tfio_table._VERSION == jfio_table._VERSION
+    for name in cols:
+        got, want = tfio_table.read_column(pj, name), jfio_table.read_column(pt, name)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert np.array_equal(np.ma.getdata(got), np.ma.getdata(want),
+                              equal_nan=want.dtype.kind == "f")

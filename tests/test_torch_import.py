@@ -37,7 +37,7 @@ def test_every_module_is_listed():
                  "fio", "ops._engine", "ops.bitpack", "ops.ffor", "ops.delta",
                  "ops.transpose", "kernels.cuda_codecs", "kernels.build",
                  "fio_device", "convert", "ops.orig", "ops.single", "ops.dispatch",
-                 "models.codecs"):
+                 "models.codecs", "fio_table", "analytics"):
         assert f"fastlanes_tpu_torch.{want}" in names
 
 
@@ -122,6 +122,25 @@ def test_public_codec_names_match_the_reference_package():
         assert name in fastlanes_tpu_torch.__all__, name
 
 
+def test_table_multi_file_and_scan_names_resolve_to_their_modules():
+    """The twelve names of the float / table / scan paths, under the JAX
+    package's names; the analytics entries still to be ported are absent."""
+    from fastlanes_tpu_torch import analytics, fio_device, fio_table
+
+    homes = {fio_table: ("write_table", "read_table", "read_column", "TableWriter",
+                         "StringColumn"),
+             fio_device: ("read_files_device", "iter_files_device", "read_column_device"),
+             analytics: ("scan_column", "scan_table", "count_where", "scan_where")}
+    for module, names in homes.items():
+        for name in names:
+            assert name in fastlanes_tpu_torch.__all__, name
+            assert getattr(fastlanes_tpu_torch, name) is getattr(module, name), name
+    for name in ("scan_where_multi", "group_stats", "select", "join", "quantile"):
+        assert name not in fastlanes_tpu_torch.__all__
+        with pytest.raises(AttributeError):
+            getattr(fastlanes_tpu_torch, name)
+
+
 def test_default_device_is_the_gpu_or_an_error(tmp_path):
     """`device=None` means CUDA: on a machine without it the entry points
     raise instead of carrying on on the CPU."""
@@ -140,6 +159,15 @@ def test_default_device_is_the_gpu_or_an_error(tmp_path):
         convert.from_reference(values, "u32")
     got = fio_device.read_file_device(path, device="cpu")
     assert got.device.type == "cpu" and np.array_equal(got.numpy(), values)
+    from fastlanes_tpu_torch import alp
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        fastlanes_tpu_torch.scan_column(path)
+    with pytest.raises(RuntimeError, match="cuda"):
+        fastlanes_tpu_torch.count_where(path, "gt", 5)
+    # the decoders run where their payload lies: a CPU tensor stays on the CPU
+    out = alp.decode_device(torch.zeros(4, dtype=torch.uint32), 2, 0, 0, np.float32)
+    assert out.device.type == "cpu"
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu():

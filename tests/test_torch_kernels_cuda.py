@@ -261,3 +261,148 @@ def test_default_device_read(card, tmp_path):
     fio.write_file(path, values, chunk_blocks=8)
     got = fio_device.read_file_device(path)
     assert got.is_cuda and np.array_equal(got.cpu().numpy(), fio.read_file(path))
+
+
+# -- float columns, tables, many files and the scans, on the card ------------
+
+
+def float_bits(arr):
+    return np.ascontiguousarray(arr).view(f"uint{arr.dtype.itemsize * 8}")
+
+
+@pytest.mark.parametrize("np_float,d", [(np.float32, d) for d in range(11)]
+                         + [(np.float64, d) for d in range(19)],
+                         ids=lambda v: getattr(v, "__name__", str(v)))
+def test_alp_division_on_the_card_is_the_host_division(card, np_float, d):
+    """decode_device is one IEEE division; its bits equal decode_np's."""
+    from fastlanes_tpu_torch import alp
+
+    rng = np.random.default_rng(100 + d)
+    bound, top = ((1 << 24) - 1, 24) if np_float is np.float32 else (1 << 52, 53)
+    mag = rng.integers(0, top, 200_000)
+    ints = np.clip(rng.integers(0, 1 << 62, mag.size, dtype=np.int64) >> (62 - mag), 0, bound)
+    ints *= rng.integers(0, 2, mag.size, dtype=np.int64) * 2 - 1
+    reference = int(ints.min())
+    shifted = (ints - reference).astype(np.uint32 if np_float is np.float32 else np.uint64)
+    got = alp.decode_device(torch.from_numpy(shifted).to(card), d, 0, reference, np_float)
+    want = alp.decode_np(shifted, d, 0, reference, np_float)
+    assert got.is_cuda
+    assert np.array_equal(float_bits(got.cpu().numpy()), float_bits(want))
+
+
+@pytest.mark.parametrize("np_float", [np.float32, np.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("codec", ["alp", "alprd"])
+def test_float_files_read_on_the_card(card, tmp_path, np_float, codec):
+    rng = np.random.default_rng(3)
+    values = (np.round(rng.uniform(-900, 900, 9000), 2) if codec == "alp"
+              else rng.standard_normal(9000)).astype(np_float)
+    values[[5, 3000, 8000]] = [np.nan, -0.0, np.inf]
+    path = str(tmp_path / "col.flt")
+    fio.write_file(path, values, codec=codec, chunk_blocks=2)
+    before = ck.LAUNCHES["unpack"]
+    got = fio_device.read_file_device(path)
+    assert got.is_cuda and ck.LAUNCHES["unpack"] > before
+    assert np.array_equal(float_bits(got.cpu().numpy()), float_bits(values))
+    part = fio_device.read_blocks_device(path, 1, 6)
+    assert np.array_equal(float_bits(part.cpu().numpy()),
+                          float_bits(fio.read_blocks(path, 1, 6)))
+
+
+@pytest.mark.parametrize("vtype", ["f32", "f64"])
+def test_alp_codec_on_the_card(card, vtype):
+    from fastlanes_tpu_torch.models import codecs
+
+    rng = np.random.default_rng(5)
+    values = np.round(rng.uniform(0, 500, (6, 1024)), 2).astype(
+        np.float32 if vtype == "f32" else np.float64)
+    values[1, 1], values[4, 9] = np.nan, 1 / 3
+    codec = codecs.get_codec("alp", vtype)
+    before = dict(ck.LAUNCHES)
+    enc = codec.encode(values)
+    out = codec.decode(enc)
+    assert enc.payload.is_cuda and out.is_cuda
+    assert ck.LAUNCHES["pack"] == before["pack"] + 1
+    assert ck.LAUNCHES["unpack"] == before["unpack"] + 1
+    assert np.array_equal(float_bits(out.cpu().numpy()), float_bits(values))
+
+
+def small_table(rng, n=5 * 1024 + 77):
+    return {
+        "key": np.sort(rng.integers(0, 1 << 44, n).astype(np.uint64)),
+        "day": (np.datetime64("2021-03-01") + rng.integers(0, 700, n)).astype("datetime64[D]"),
+        "change": rng.integers(-40, 40, n).astype(np.int32),
+        "qty": (rng.integers(0, 500, n) + 70_000).astype(np.uint32),
+        "cur": np.array(["EUR", "GBP", "JPY", "USD"])[rng.integers(0, 4, n)],
+        "price": np.round(rng.uniform(0, 5000, n), 2),
+        "ratio": np.round(rng.uniform(-1, 1, n), 3).astype(np.float32),
+        "visits": np.ma.MaskedArray(np.cumsum(rng.integers(0, 9, n)).astype(np.uint32),
+                                    mask=rng.random(n) < 0.2),
+    }
+
+
+def test_table_columns_and_files_read_on_the_card(card, tmp_path):
+    from fastlanes_tpu_torch import fio_table
+
+    rng = np.random.default_rng(9)
+    cols = small_table(rng)
+    path = str(tmp_path / "t.flt")
+    fio_table.write_table(path, cols, chunk_blocks=2)
+    for name in cols:
+        got = fio_device.read_column_device(path, name)
+        host = fio_table.read_column(path, name)
+        if isinstance(got, fio_device.NullableColumn):
+            assert np.array_equal(got.valid.cpu().numpy(), ~host.mask)
+            got, host = got.values, host.data
+        arr = got.materialize() if isinstance(got, fio_table.StringColumn) else got.cpu().numpy()
+        if host.dtype.kind in "mM":
+            host = host.view(np.int64)
+        assert arr.dtype == host.dtype and arr.tobytes() == host.tobytes(), name
+    paths = []
+    for i in range(5):
+        p = str(tmp_path / f"s{i}.flt")
+        fio.write_file(p, rng.integers(1 << 8, 1 << 9, (4, 1024), dtype=np.uint32),
+                       codec="bitpack", chunk_blocks=2)
+        paths.append(p)
+    before = ck.LAUNCHES["unpack"]
+    got = fio_device.read_files_device(paths)
+    assert ck.LAUNCHES["unpack"] == before + 1  # one launch for all five files
+    for p in paths:
+        assert got[p].is_cuda and np.array_equal(got[p].cpu().numpy(), fio.read_file(p))
+    for p, tensor in fio_device.iter_files_device(paths):
+        assert np.array_equal(tensor.cpu().numpy(), fio.read_file(p))
+
+
+def test_scans_on_the_card_equal_the_cpu_path(card, tmp_path):
+    """Every scan entry on the card returns what `device="cpu"` returns
+    (which the CPU tests hold equal to the JAX package's), and the sorted
+    column scans through the natural-order kernel."""
+    from fastlanes_tpu_torch import analytics, fio_table
+
+    rng = np.random.default_rng(13)
+    cols = small_table(rng, 8 * 1024)
+    path = str(tmp_path / "t.flt")
+    fio_table.write_table(path, cols, chunk_blocks=2)
+
+    def both(fn):
+        a, b = fn(None), fn("cpu")
+        assert repr(a) == repr(b), (a, b)  # repr: NaN-safe, type- and sign-strict
+        return a
+
+    both(lambda dev: analytics.scan_table(path, device=dev))
+    before = dict(ck.LAUNCHES)
+    both(lambda dev: analytics.scan_column(path, "key", device=dev))
+    assert ck.LAUNCHES["undelta_pack"] > before["undelta_pack"]
+    assert ck.LAUNCHES["undelta_pack_orig"] == before["undelta_pack_orig"]
+    before = dict(ck.LAUNCHES)
+    both(lambda dev: analytics.scan_column(path, "visits", device=dev))  # nullable
+    assert ck.LAUNCHES["undelta_pack"] == before["undelta_pack"]
+    assert ck.LAUNCHES["undelta_pack_orig"] > before["undelta_pack_orig"]
+    probes = {"key": 1 << 43, "day": np.datetime64("2022-01-01"), "change": -3,
+              "qty": 70_250, "cur": "GBP", "price": 2500.25, "ratio": 0.125, "visits": 900}
+    for name, probe in probes.items():
+        for op in ("lt", "le", "gt", "ge", "eq", "ne", "in", "notin"):
+            value = [probe] if op in ("in", "notin") else probe
+            both(lambda dev: analytics.count_where(path, op, value, column=name, device=dev))
+            both(lambda dev: analytics.scan_where(path, op, value, column=name, device=dev))
+        both(lambda dev: analytics.scan_where(path, "ge", probe, column="price", where=name,
+                                              device=dev))
