@@ -30,9 +30,11 @@ eight operators on an integer, a float, a date and a string column) and
 counted: natural-order kernels on the sorted columns, original-order kernels
 only under a validity bitmap or a padded tail, none for a probe the zone maps
 resolve. Last it times each kernel at the largest shape its path gave it,
-beside its bound, its plain version and a device copy, and each read, encode
-and scan end to end. On every driven path, each (kernel, dtype) pair is held
-against its plain version on the tensors of its largest launch there.
+beside its bound, its plain version and a device copy, the seven decode
+kernels of every dtype at a size whose bytes bound is at least 0.1 ms, and
+each read, encode and scan end to end. On every driven path, each (kernel,
+dtype) pair is held against its plain version on the tensors of its largest
+launch there, and the `kernels` line counts the launches by dtype.
 
 Needs one CUDA device and nvcc; it never runs on the CPU. Every phase prints
 one JSON line; any failed phase raises and the exit code is not 0. The last
@@ -45,7 +47,6 @@ import contextlib
 import json
 import math
 import os
-import re
 import statistics
 import subprocess
 import sys
@@ -209,15 +210,15 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     path = build.build(force=True)
     build.load()
-    log = build.last_build_log or ""
-    registers = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
-    spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", log)]
+    usage = build.ptxas_usage(build.last_build_log or "")
+    registers = [u.get("registers", 0) for u in usage.values()]
+    spills = [u.get("spill_store_bytes", 0) for u in usage.values()]
     emit({"phase": "build", "library": os.path.relpath(path),
           "nvcc_seconds": build.last_build_seconds,
-          "kernel_instantiations": len(registers),
+          "kernel_instantiations": len(usage),
           "max_registers": max(registers, default=None),
           "max_spill_store_bytes": max(spills, default=None),
-          "seconds": time.perf_counter() - t0})
+          "ptxas": usage, "seconds": time.perf_counter() - t0})
 
 
 def phase_kernels(rng) -> dict:
@@ -459,13 +460,13 @@ def phase_read(columns: dict, tmp: str, device=None) -> dict:
     want = fio.read_blocks(paths["delta_u32"], start, stop)
     if not same(got, torch.from_numpy(want).to(got.device)):
         raise AssertionError("read_blocks_device range differs from the host read")
-    launches = dict(ck.LAUNCHES)
+    launches, by_dtype = launch_counts()
     read_seconds = time.perf_counter() - t0
     emit({"phase": "read", "tolerance": 0, "columns": report,
           "range": [start, stop], "launches": launches, "gather_passes": n_gathers,
           "unfor_pack_launches": launches["unfor_pack"],
           "write_seconds": write_seconds, "read_and_compare_seconds": read_seconds})
-    return {"paths": paths, "launches": launches}
+    return {"paths": paths, "launches": launches, "by_dtype": by_dtype}
 
 
 class largest_launches:
@@ -642,7 +643,7 @@ def phase_encode(columns: dict, device=None) -> dict:
                 "ratio": enc.compression_ratio, "encode_seconds": seconds,
                 "launches": {k: v - before[k] for k, v in ck.LAUNCHES.items()
                              if v != before[k]}}
-    launches = dict(ck.LAUNCHES)
+    launches, by_dtype = launch_counts()
     encode_seconds = time.perf_counter() - t0
     if on_card and (gathers[0] or launches["delta_pack"]):
         raise AssertionError(f"the encodes made {gathers[0]} transpose gather passes "
@@ -689,7 +690,8 @@ def phase_encode(columns: dict, device=None) -> dict:
     emit({"phase": "encode", "tolerance": 0, "columns": report, "launches": launches,
           "gather_passes": gathers[0],
           "oracle_blocks_each_end": ORACLE_BLOCKS, "encode_seconds": encode_seconds})
-    return {"device_columns": dev, "launches": launches, "seen": seen, "encoded": encoded}
+    return {"device_columns": dev, "launches": launches, "by_dtype": by_dtype, "seen": seen,
+            "encoded": encoded}
 
 
 def phase_transposed(encode_state: dict) -> dict:
@@ -718,9 +720,9 @@ def phase_transposed(encode_state: dict) -> dict:
                 if not same(again, enc.payload):
                     raise AssertionError(f"{name}: delta_pack differs from the payload")
             del got, want
-    launches = dict(ck.LAUNCHES)
+    launches, by_dtype = launch_counts()
     emit({"phase": "transposed", "tolerance": 0, "launches": launches})
-    return {"launches": launches, "seen": seen}
+    return {"launches": launches, "by_dtype": by_dtype, "seen": seen}
 
 
 # ---------------------------------------------------------------------------
@@ -734,6 +736,15 @@ def sync_if_cuda(device) -> None:
 
 def launches_since(before: dict) -> dict:
     return {k: v - before[k] for k, v in ck.LAUNCHES.items() if v != before[k]}
+
+
+def launch_counts():
+    """The launch counts since the last reset: per kernel, and per kernel the
+    launches by dtype ({kernel: {dtype: n}}), read at one moment."""
+    by_dtype = {}
+    for (name, dtype), n in sorted(ck.LAUNCHES_BY_DTYPE.items()):
+        by_dtype.setdefault(name, {})[dtype] = n
+    return dict(ck.LAUNCHES), by_dtype
 
 
 def float_bits(arr: np.ndarray) -> np.ndarray:
@@ -891,11 +902,11 @@ def phase_alp(tmp: str, scale: int, device=None) -> dict:
                                     "exceptions": int(len(enc.params["exc_pos"])),
                                     "ratio": enc.compression_ratio,
                                     "launches": launches_since(before)}
-    launches = dict(ck.LAUNCHES)
+    launches, by_dtype = launch_counts()
     emit({"phase": "alp", "tolerance": 0, "division": "one IEEE division per value "
           "(torch `/` on the card), bits equal to the host spec for every integer tried",
           "division_proof": proof, "columns": report, "launches": launches})
-    return {"paths": paths, "launches": launches, "columns": columns}
+    return {"paths": paths, "launches": launches, "by_dtype": by_dtype, "columns": columns}
 
 
 TABLE_WORDS = np.array(sorted(
@@ -965,11 +976,11 @@ def phase_table(tmp: str, scale: int, device=None) -> dict:
                         "vtype": col.get("vtype"), "transform": col.get("transform"),
                         "read_seconds": seconds, "launches": whole, "range": [start, stop]}
         del got, part, host
-    launches = dict(ck.LAUNCHES)
+    launches, by_dtype = launch_counts()
     emit({"phase": "table", "tolerance": 0, "rows": len(columns["key"]),
           "file_bytes": os.path.getsize(path), "write_seconds": write_seconds,
           "columns": report, "launches": launches})
-    return {"path": path, "columns": columns, "launches": launches}
+    return {"path": path, "columns": columns, "launches": launches, "by_dtype": by_dtype}
 
 
 def phase_files(tmp: str, scale: int, device=None) -> dict:
@@ -1022,14 +1033,14 @@ def phase_files(tmp: str, scale: int, device=None) -> dict:
     iter_seconds = time.perf_counter() - t0
     if seen != paths:
         raise AssertionError("iter_files_device lost the order of its paths")
-    launches = dict(ck.LAUNCHES)
+    launches, by_dtype = launch_counts()
     emit({"phase": "files", "tolerance": 0, "files": len(paths), "values_each": n,
           "signature_groups": len(groups), "read_files_device": {
               "seconds": batch_seconds, "launches": batch_launches},
           "iter_files_device": {"seconds_with_compare": iter_seconds,
                                 "launches": launches_since(before)},
           "launches": launches})
-    return {"shards": shards, "others": others, "launches": launches,
+    return {"shards": shards, "others": others, "launches": launches, "by_dtype": by_dtype,
             "shard_values": [hosts[p] for p in shards]}
 
 
@@ -1255,10 +1266,10 @@ def phase_scan(read_paths: dict, read_columns: dict, table: dict, files: dict,
         if not (c["launches"].get("undelta_pack_orig", 0) >= 1
                 and not c["launches"].get("undelta_pack") and c["gather_passes"] == 0):
             raise AssertionError(f"lockstep scan_where on the sorted key: {c}")
-    launches = dict(ck.LAUNCHES)
+    launches, by_dtype = launch_counts()
     emit({"phase": "scan", "tolerance": 0, "oracle": "numpy in this script: Python-int "
           "sums, math.fsum, numpy comparisons", **report, "launches": launches})
-    return {"launches": launches}
+    return {"launches": launches, "by_dtype": by_dtype}
 
 
 # ---------------------------------------------------------------------------
@@ -1449,13 +1460,21 @@ def dtype_rows(rng) -> list:
     return rows
 
 
+#: the decode rows of the kernel table, timed by dtype at a >= 0.1 ms bound
+DECODE_KERNELS = ("unpack", "unfor_pack", "undelta_pack", "unzdelta_pack",
+                  "unpack_orig", "undelta_pack_orig", "unzdelta_pack_orig")
+
+
 def dtype_rows_at_bound(rng, bound_ms: float = 0.1) -> list:
-    """Kernel rows 1, 3, 9 and 11 (unpack, undelta_pack, undelta_pack_orig,
-    delta_pack_orig) for u8, u16 and u64 at a size whose bytes bound is at
-    least `bound_ms`, so that a reading under half of its bound can be told
-    from launch latency; a clone of the values beside them. W = T/4 + 2."""
+    """The seven decode kernels (rows 1-4 and 8-10) and delta_pack_orig (row
+    11) for every dtype at a size whose bytes bound is at least `bound_ms`,
+    so that a reading under half of its bound can be told from launch
+    latency; u32 is the baseline of the same call. A clone of the values
+    beside them. W = T/4 + 2, per-block base, per-block reference. Each
+    kernel's whole output is held bit for bit against its plain version on
+    the same inputs before it is timed."""
     rows = []
-    for dtype in ("u8", "u16", "u64"):
+    for dtype in layout.DTYPES:
         t, nl, np_dt = layout.bit_width(dtype), layout.lanes(dtype), layout.np_dtype(dtype)
         width = t // 4 + 2
         plen = layout.packed_len(dtype, width)
@@ -1466,32 +1485,39 @@ def dtype_rows_at_bound(rng, bound_ms: float = 0.1) -> list:
         base = torch.from_numpy(rng.integers(
             0, 1 << min(t, 63), size=(1024, nl), dtype=np.uint64).astype(np_dt)
         ).cuda().repeat(blocks // 1024, 1)
+        refs = torch.from_numpy(rng.integers(
+            0, 1 << min(t, 63), size=1024, dtype=np.uint64).astype(np_dt)
+        ).cuda().repeat(blocks // 1024)
         values = ck.undelta_pack_orig(packed, base, width, dtype)
         sizes = {"packed": packed.numel() * t // 8, "base": base.numel() * t // 8,
-                 "values": values.numel() * t // 8}
+                 "refs": refs.numel() * t // 8, "values": values.numel() * t // 8}
         row = {"dtype": dtype, "width": width, "blocks": blocks,
                "clone_ms": time_cuda(lambda: torch.clone(values), 10, inner=10),
                "clone_bound_ms": 2 * sizes["values"] / HBM_BYTES_PER_S * 1e3}
-        for name, src, param, moved in (
-                ("unpack", packed, None, sizes["packed"] + sizes["values"]),
-                ("undelta_pack", packed, base, sum(sizes.values())),
-                ("undelta_pack_orig", packed, base, sum(sizes.values())),
-                ("delta_pack_orig", values, False, sum(sizes.values()))):
+        row["clone_share_of_bound"] = row["clone_bound_ms"] / row["clone_ms"]
+        cases = [(name, packed, None, sizes["packed"] + sizes["values"])
+                 for name in ("unpack", "unpack_orig")]
+        cases += [("unfor_pack", packed, refs, sizes["packed"] + sizes["refs"] + sizes["values"])]
+        cases += [(name, packed, base, sizes["packed"] + sizes["base"] + sizes["values"])
+                  for name in ("undelta_pack", "unzdelta_pack", "undelta_pack_orig",
+                               "unzdelta_pack_orig")]
+        cases += [("delta_pack_orig", values, False,
+                   sizes["packed"] + sizes["base"] + sizes["values"])]
+        for name, src, param, moved in cases:
             got = call_kernel(name, src, param, width, dtype)
-            want = call_kernel(name, src[:CHECK_BLOCKS],
-                               param[:CHECK_BLOCKS] if isinstance(param, torch.Tensor)
-                               else param, width, dtype, plain=True)
-            head = tuple(g[:CHECK_BLOCKS] for g in got) if isinstance(got, tuple) \
-                else got[:CHECK_BLOCKS]
-            if max_abs_err(head, want) != 0.0:
+            want = call_kernel(name, src, param, width, dtype, plain=True)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            if err != 0.0:
                 raise AssertionError(f"{name} {dtype} at {blocks} blocks differs from its "
-                                     "plain version")
-            del got, want, head
-            row[name] = {"ms": time_cuda(lambda: call_kernel(name, src, param, width, dtype),
-                                         10, inner=10),
-                         "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes_moved": moved}
+                                     f"plain version: max_abs_err={err}")
+            del got, want
+            ms = time_cuda(lambda: call_kernel(name, src, param, width, dtype), 10, inner=10)
+            bound = moved / HBM_BYTES_PER_S * 1e3
+            row[name] = {"ms": ms, "bound_ms": bound, "share_of_bound": bound / ms,
+                         "bytes_moved": moved, "max_abs_err": err}
         rows.append(row)
-        del packed, base, values
+        del packed, base, refs, values
     return rows
 
 
@@ -1651,12 +1677,17 @@ def main() -> int:
         # every path is driven with the launch counts set to 0 just before it
         # and read just after; then every (kernel, dtype) shape the path
         # launched is held against the plain version on the same tensors
-        by_path, shapes_by_path = {}, {}
+        by_path, dtypes_by_path, shapes_by_path = {}, {}, {}
 
         def drive(path_name, phase, needs):
             with largest_launches(per_dtype=True) as seen:
                 state = phase()
             by_path[path_name] = state["launches"]
+            dtypes_by_path[path_name] = state["by_dtype"]
+            if any(sum(state["by_dtype"].get(k, {}).values()) != n
+                   for k, n in state["launches"].items()):
+                raise AssertionError(f"the {path_name} path's launches by dtype "
+                                     f"{state['by_dtype']} do not add up to {state['launches']}")
             missing = [k for k in needs if state["launches"][k] == 0]
             if missing:
                 raise AssertionError(f"the {path_name} path launched no {missing} kernel")
@@ -1685,13 +1716,20 @@ def main() -> int:
         if [row["name"] for row in rows] != list(KERNELS):
             raise AssertionError(f"kernel rows: {[row['name'] for row in rows]}")
     for row in rows:
-        # the count over every driven path, and path by path beside the
-        # shapes held there; `shape`, `ms` and the bounds are those of the
+        # the count over every driven path, by dtype, and path by path beside
+        # the shapes held there; `shape`, `ms` and the bounds are those of the
         # largest launch of the path named in `timed_on_path` alone
+        name = row["name"]
         row["launches_by_path"] = {
-            p: {"launches": c[row["name"]], "shapes": shapes_by_path[p][row["name"]]}
-            for p, c in by_path.items() if c[row["name"]]}
+            p: {"launches": c[name], "by_dtype": dtypes_by_path[p][name],
+                "shapes": shapes_by_path[p][name]}
+            for p, c in by_path.items() if c[name]}
         row["launches"] = sum(v["launches"] for v in row["launches_by_path"].values())
+        by_dtype = {}
+        for v in row["launches_by_path"].values():
+            for dtype, n in v["by_dtype"].items():
+                by_dtype[dtype] = by_dtype.get(dtype, 0) + n
+        row["launches_by_dtype"] = dict(sorted(by_dtype.items()))
         if row["launches"] == 0:
             raise AssertionError(f"kernel {row['name']} was launched on no driven path")
     emit({"kernels": rows})

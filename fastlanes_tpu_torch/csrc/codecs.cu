@@ -2,35 +2,61 @@
 //
 // Eleven kernels from two row loops. Seven are the CUDA counterparts of the
 // kernels that fastlanes_tpu/kernels/pallas_codecs.py builds from
-// _unpack_body and _pack_body: unpack, unfor_pack, undelta_pack,
-// unzdelta_pack (decode_kernel) and pack, delta_pack, for_pack
-// (encode_kernel), all in TRANSPOSED order. Four read or write ORIGINAL
-// order in the same pass: unpack_orig, undelta_pack_orig, unzdelta_pack_orig
-// (decode_orig_kernel; the in-kernel relayout that
-// benchmarks/exp_untranspose_pallas.py tried on the TPU, whose compiler
-// refused it) and delta_pack_orig, plain and zigzag (encode_orig_kernel).
+// _unpack_body and _pack_body: unpack (:635), unfor_pack (:721),
+// undelta_pack (:656), unzdelta_pack (:674) (decode_kernel) and pack,
+// delta_pack, for_pack (encode_kernel), all in TRANSPOSED order. Four read or
+// write ORIGINAL order in the same pass: unpack_orig, undelta_pack_orig,
+// unzdelta_pack_orig (decode_kernel for u8/u16, decode_orig_kernel for
+// u32/u64; the in-kernel relayout that benchmarks/exp_untranspose_pallas.py
+// tried on the TPU, _kernel_pD :164, _kernel_pE :171, _kernel_pG :267, whose
+// compiler refused it; the zigzag hook of pallas_codecs.py:841) and
+// delta_pack_orig, plain and zigzag (encode_orig_kernel).
 //
 // Layout facts the design rests on (core/layout.py): packed word w of lane l
 // of block b is packed[b*plen + LANES*w + l] with plen = LANES*W, and row r
 // of lane l of the transposed-order block is values[b*1024 + row_offset(r) + l]
 // with row_offset(r) = (r%8)*128 + FL_ORDER[r/8]*16. In ORIGINAL order the T
 // rows of a lane are contiguous: row r of lane l is values[b*1024 + seg(l)*T + r],
-// seg a permutation of the lanes (Orig<T>::seg). One thread owns one
-// (block, lane): it walks the lane's W words and T rows in registers, so each
-// access to a word group and to a transposed row is contiguous across the
-// LANES threads of the block (128 bytes for every dtype). The running sum of
-// undelta/unzdelta and the previous value of delta_pack are one register per
-// thread, seeded from the base; the word under construction in the encode
-// loop is another. In the transposed-order kernels nothing is shared between
-// threads and nothing is staged. In original order a thread's rows are T
-// consecutive values and a warp's row-by-row stores would scatter over 32
-// cache lines, so the original-order kernels stage the block in shared
-// memory and move it to or from device memory with consecutive threads on
-// consecutive words.
+// seg a permutation of the lanes (Orig<T>::seg).
 //
 // These kernels move B*(1024*W/8 + 1024*T/8) bytes (plus B*LANES*T/8 for a
 // per-block base) and do a handful of integer operations per value, far
-// below the card's compute/bandwidth line: memory traffic bounds them.
+// below the card's compute/bandwidth line: memory traffic bounds them, and a
+// kernel reaches that bound only if every warp-wide load and store moves
+// whole 32-byte sectors, 128 bytes or more per instruction.
+//
+// Decode (decode_kernel, both orders for u8/u16, transposed order for
+// u32/u64): one thread owns PER = 4 / sizeof(T) ADJACENT lanes of one block
+// for T narrower than 32 bits (4 for u8, 2 for u16), else one lane (Lanes<T>).
+// Those PER lanes are one aligned 32-bit word in every word group and in
+// every transposed row, so the thread loads its packed words and the base as
+// 32-bit words and, in transposed order, stores each row as one 32-bit word:
+// a FastLanes block is one warp of 32 threads (u64: 16) and each warp-wide
+// access is 128 contiguous bytes for every dtype. With one lane per thread a
+// u8 warp moved 32 bytes per instruction, 4x the instructions per byte, and
+// reached a third of the bound. The row loop runs lane-wise on the 32-bit
+// word (SWAR): masks are the W-bit mask replicated into every lane, the
+// straddling row masks both parts to their lane before it joins them, and the
+// adds of unfor and of the running sum add each lane's top bit apart so that
+// no carry crosses into the next lane; unzigzag masks the bit that the shift
+// brings in from the next lane. The split into PER scalar registers would run
+// the scalar loop PER times over; SWAR costs a few operations per row for
+// all PER lanes at once. For u32/u64 (PER = 1) every helper is the scalar
+// operation of the one-lane loop.
+//
+// In original order a lane's T rows are T consecutive values. A u8/u16
+// thread keeps its T row words in registers and turns them with a 4x4 (u8)
+// or 2x2 (u16) byte transpose (__byte_perm) into words of 4 (2) consecutive
+// values of one lane. u8: the 8 rows of a lane are 8 bytes, one 8-byte store;
+// the warp's stores for one lane index cover four 64-byte runs. u16: the 16
+// rows of a lane are 32 bytes, one sector; the thread pair (2p, 2p+1) swaps
+// halves with one shuffle per word, so that in each 16-byte store the pair
+// writes both halves of the same lane and the warp covers four 128-byte
+// lines. Nothing is staged and no thread waits at a barrier. u32/u64 keep
+// decode_orig_kernel: a lane's 32 (64) rows are 128 (512) bytes, which a
+// thread cannot store as a whole, so that kernel stages the block in shared
+// memory and moves it out with consecutive threads on consecutive words. The
+// encode kernels keep one thread per (block, lane) for every dtype.
 //
 // The bit width W is a run-time argument (one instantiation per dtype, op
 // and order). A shift by T is undefined in C++, so the W-bit mask, the
@@ -65,7 +91,52 @@ __host__ __device__ constexpr int row_offset(int r) {
     return (r % 8) * 128 + fl_order(r / 8) * 16;
 }
 
-// Shapes of the original-order kernels. A CUDA block of THREADS threads holds
+// What one decode thread holds: PER adjacent lanes of one FastLanes block in
+// one register V (a 32-bit word for u8/u16, T itself for u32/u64), and the
+// lane-wise operations of the row loop on it. For PER = 1 each operation is
+// the scalar one.
+template <typename T>
+struct Lanes {
+    static constexpr int TBITS = sizeof(T) * 8;
+    static constexpr int LANES = 1024 / TBITS;
+    using V = typename std::conditional<(sizeof(T) < 4), uint32_t, T>::type;
+    static constexpr int PER = sizeof(V) / sizeof(T);  // lanes per thread
+    static constexpr int THREADS = LANES / PER;        // threads per FastLanes block
+    static constexpr V ONES = V(~V(0)) / V(T(~T(0)));  // 0x01010101, 0x00010001, 1
+    static constexpr V HIGH = V(ONES << (TBITS - 1));  // the top bit of every lane
+
+    // the low k bits of every lane, k in [0, TBITS]; for PER > 1 the shift
+    // stays below 32, so k = TBITS needs no guard
+    __device__ __forceinline__ static V low_bits(int k) {
+        if constexpr (PER == 1) return k == TBITS ? V(~V(0)) : V((V(1) << k) - V(1));
+        else return V((V(1) << k) - V(1)) * ONES;
+    }
+    __device__ __forceinline__ static V rep(T x) { return V(V(x) * ONES); }
+    // wrapping add in every lane: the top bits are added apart (xor), so no
+    // carry leaves a lane
+    __device__ __forceinline__ static V add(V a, V b) {
+        if constexpr (PER == 1) return V(a + b);
+        else return V(((a & ~HIGH) + (b & ~HIGH)) ^ ((a ^ b) & HIGH));
+    }
+    // (v >> 1) ^ -(v & 1) in every lane; the shift brings the next lane's low
+    // bit into the top bit, which the mask clears
+    __device__ __forceinline__ static V unzigzag(V v) {
+        if constexpr (PER == 1) return V(V(v >> 1) ^ V(V(0) - V(v & V(1))));
+        else return V(((v >> 1) & ~HIGH) ^ ((v & ONES) * V(T(~T(0)))));
+    }
+    // the row that straddles two words: v = src >> shift holds the lane's
+    // TBITS - shift high bits of the old word, `next` gives the `remaining`
+    // low bits of the new one, shifted up by TBITS - shift. With PER > 1 both
+    // parts are first cut to their lane, so no bits cross between lanes.
+    __device__ __forceinline__ static V stitch(V v, V next, int shift, int remaining) {
+        if constexpr (PER == 1) return V(v | V(next << (TBITS - shift)));
+        else return V((v & low_bits(TBITS - shift)) |
+                      ((next & low_bits(remaining)) << (TBITS - shift)));
+    }
+};
+
+// Shapes of the staged original-order kernels (every encode_orig_kernel;
+// decode_orig_kernel of u32/u64). A CUDA block of THREADS threads holds
 // NB FastLanes blocks in shared memory, each as LANES segments of T values
 // padded by one element (SEG_PITCH = T + 1): with that pitch neither the
 // lane-major accesses of the row loop (a warp touches one row of 32 segments)
@@ -82,8 +153,8 @@ struct Orig {
     static constexpr int NB = THREADS / LANES;
     static constexpr int SEG_PITCH = TBITS + 1;
     static constexpr int BLOCK_PITCH = LANES * SEG_PITCH;
-    using Word = typename std::conditional<(sizeof(T) < 4), uint32_t, T>::type;
-    static constexpr int PER = sizeof(Word) / sizeof(T);  // values per Word
+    using Word = typename Lanes<T>::V;              // what the copy moves
+    static constexpr int PER = Lanes<T>::PER;       // values per Word
 
     // The segment of original order that holds the T rows of `lane`:
     // (lane % 16) * (64 / T) + bitreverse(lane / 16), the reversal taken over
@@ -97,37 +168,48 @@ struct Orig {
     }
 };
 
-// The stores of the decode row loop: where row r of the thread's lane goes.
+// The stores of the decode row loop: where row r of the thread's lanes goes.
 template <typename T>
-struct StoreTransposed {  // out + b*1024 + lane: one row = 128 contiguous bytes
-    T* o;
-    __device__ __forceinline__ void operator()(int r, T v) { o[row_offset(r)] = v; }
+struct StoreTransposed {  // out + b*1024 + PER*q: one row = 128 contiguous bytes a warp
+    using V = typename Lanes<T>::V;
+    V* o;
+    __device__ __forceinline__ void operator()(int r, V v) {
+        o[row_offset(r) / Lanes<T>::PER] = v;
+    }
 };
 
 template <typename T>
-struct StoreStaged {  // the lane's segment in shared memory
+struct StoreStaged {  // the lane's segment in shared memory (PER = 1)
     T* s;
     __device__ __forceinline__ void operator()(int r, T v) { s[r] = v; }
 };
 
-// The decode row loop of one (block, lane): p points at the lane's first
-// packed word (stride LANES between words); `acc` seeds the running sum of
-// the delta ops, `reference` is added by OP_UNFOR.
+template <typename T>
+struct StoreRows {  // the T row words, kept in registers for the byte transpose
+    typename Lanes<T>::V rows[Lanes<T>::TBITS];
+    __device__ __forceinline__ void operator()(int r, typename Lanes<T>::V v) { rows[r] = v; }
+};
+
+// The decode row loop of one thread's PER lanes: p points at their first
+// packed word (stride THREADS between words, in units of V); `acc` seeds the
+// running sum of the delta ops, `reference` (replicated) is added by OP_UNFOR.
 template <typename T, int OP, typename Store>
-__device__ __forceinline__ void decode_rows(const T* __restrict__ p, int width, T acc,
-                                            T reference, Store& store) {
-    constexpr int TBITS = sizeof(T) * 8;
-    constexpr int LANES = 1024 / TBITS;
-    const T mask = width == TBITS ? T(~T(0)) : T((T(1) << width) - T(1));
-    T src = width > 0 ? p[0] : T(0);
+__device__ __forceinline__ void decode_rows(const typename Lanes<T>::V* __restrict__ p,
+                                            int width, typename Lanes<T>::V acc,
+                                            typename Lanes<T>::V reference, Store& store) {
+    using L = Lanes<T>;
+    using V = typename L::V;
+    constexpr int TBITS = L::TBITS;
+    const V mask = L::low_bits(width);
+    V src = width > 0 ? p[0] : V(0);
     int word = 0;   // index of the packed word held in src
     int shift = 0;  // bit position of the next row inside src, < TBITS
 
 #pragma unroll
     for (int r = 0; r < TBITS; ++r) {
-        T v = T(0);
+        V v = V(0);
         if (width > 0) {
-            v = T(src >> shift);
+            v = V(src >> shift);
             const int end = shift + width;
             if (end >= TBITS) {
                 // the row ends at or beyond the word boundary: fetch the next
@@ -135,25 +217,88 @@ __device__ __forceinline__ void decode_rows(const T* __restrict__ p, int width, 
                 const int remaining = end - TBITS;
                 ++word;
                 if (word < width) {
-                    src = p[(long long)word * LANES];
-                    if (remaining > 0) v = T(v | T(src << (width - remaining)));
+                    src = p[(long long)word * L::THREADS];
+                    if (remaining > 0) v = L::stitch(v, src, shift, remaining);
                 }
                 shift = remaining;
             } else {
                 shift = end;
             }
-            v = T(v & mask);
+            v = V(v & mask);
         }
         if (OP == OP_UNFOR) {
-            v = T(v + reference);
+            v = L::add(v, reference);
         } else if (OP == OP_UNZDELTA) {
-            v = T(T(v >> 1) ^ T(T(0) - T(v & T(1))));  // unzigzag
+            v = L::unzigzag(v);
         }
         if (OP == OP_UNDELTA || OP == OP_UNZDELTA) {
-            acc = T(acc + v);
+            acc = L::add(acc, v);
             v = acc;
         }
         store(r, v);
+    }
+}
+
+// Original order from the row words of a u8 thread (lanes 4q..4q+3): a 4x4
+// byte transpose of rows 4h..4h+3 gives each lane one word of its rows
+// 4h..4h+3, and the lane's 8 rows (8 consecutive values) are one 8-byte store
+// into its segment. For one k the warp's stores fill four 64-byte runs.
+__device__ __forceinline__ void store_original(const uint32_t (&rows)[8], uint8_t* out, int q) {
+    uint32_t w[4][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = 4 * h;  // rows r..r+3; byte l of a row word is lane 4q+l
+        const uint32_t t0 = __byte_perm(rows[r], rows[r + 1], 0x5140);  // r0l0 r1l0 r0l1 r1l1
+        const uint32_t t1 = __byte_perm(rows[r], rows[r + 1], 0x7362);  // r0l2 r1l2 r0l3 r1l3
+        const uint32_t t2 = __byte_perm(rows[r + 2], rows[r + 3], 0x5140);
+        const uint32_t t3 = __byte_perm(rows[r + 2], rows[r + 3], 0x7362);
+        w[0][h] = __byte_perm(t0, t2, 0x5410);  // r0l0 r1l0 r2l0 r3l0
+        w[1][h] = __byte_perm(t0, t2, 0x7632);
+        w[2][h] = __byte_perm(t1, t3, 0x5410);
+        w[3][h] = __byte_perm(t1, t3, 0x7632);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        *reinterpret_cast<uint2*>(out + Orig<uint8_t>::seg(4 * q + k) * 8) =
+            make_uint2(w[k][0], w[k][1]);
+    }
+}
+
+// The same for a u16 thread (lanes 2q, 2q+1): a 2x2 transpose of rows 2j,
+// 2j+1 gives word j of each lane, 8 words = the lane's 16 rows = 32 bytes,
+// one sector. Threads 2p and 2p+1 swap halves (one shuffle per word): the
+// even one then holds rows 0-7 of lanes 4p..4p+3, the odd one rows 8-15, and
+// store c of the pair writes the whole sector of lane 4p + c; the warp's
+// 16-byte stores cover four 128-byte lines. The whole warp is one FastLanes
+// block, so the shuffle meets no thread that left.
+__device__ __forceinline__ void store_original(const uint32_t (&rows)[16], uint16_t* out,
+                                               int q) {
+    uint32_t w[2][8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        w[0][j] = __byte_perm(rows[2 * j], rows[2 * j + 1], 0x5410);
+        w[1][j] = __byte_perm(rows[2 * j], rows[2 * j + 1], 0x7632);
+    }
+    const bool odd = q & 1;
+    uint32_t own[2][4], other[2][4];  // rows of the half this thread stores
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            own[k][i] = odd ? w[k][4 + i] : w[k][i];
+            other[k][i] = __shfl_xor_sync(0xffffffffu, odd ? w[k][i] : w[k][4 + i], 1);
+        }
+    }
+    // lanes 4p, 4p+1 are the even thread's, 4p+2, 4p+3 the odd one's
+    const int p = q >> 1;
+    uint16_t* o = out + (odd ? 8 : 0);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+        const int k = c & 1;
+        const bool mine = (c < 2) != odd;  // value selects: the arrays stay in registers
+        *reinterpret_cast<uint4*>(o + Orig<uint16_t>::seg(4 * p + c) * 16) = make_uint4(
+            mine ? own[k][0] : other[k][0], mine ? own[k][1] : other[k][1],
+            mine ? own[k][2] : other[k][2], mine ? own[k][3] : other[k][3]);
     }
 }
 
@@ -166,43 +311,55 @@ __device__ __forceinline__ T reference_of(const T* __restrict__ ref, long long r
     return ref != nullptr ? ref[b * ref_stride] : reference;
 }
 
-// Transposed-order decode.
-template <typename T, int OP>
+// Decode with PER lanes a thread, THREADS threads a FastLanes block: every
+// op in transposed order, and for u8/u16 the original-order ops, whose rows
+// leave through store_original. The thread reads its packed words and its
+// base as 32-bit words (or T for u32/u64), so both must be 4-byte aligned.
+template <typename T, int OP, int ORDER>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const T* __restrict__ packed, T* __restrict__ out,
               const T* __restrict__ base, long long base_stride,
               const T* __restrict__ ref, long long ref_stride, T reference,
               long long n_blocks, int width) {
-    constexpr int TBITS = sizeof(T) * 8;
-    constexpr int LANES = 1024 / TBITS;
+    using L = Lanes<T>;
+    using V = typename L::V;
 
     const long long gid = (long long)blockIdx.x * kThreads + threadIdx.x;
-    const long long b = gid / LANES;
-    const int lane = (int)(gid % LANES);
-    if (b >= n_blocks) return;  // ragged last CUDA block
+    const long long b = gid / L::THREADS;
+    const int q = (int)(gid % L::THREADS);
+    if (b >= n_blocks) return;  // ragged last CUDA block: whole warps leave
 
-    const T* p = packed + b * ((long long)LANES * width) + lane;
-    T acc = T(0);
-    if (OP == OP_UNDELTA || OP == OP_UNZDELTA) acc = base[b * base_stride + lane];
-    T rf = T(0);
-    if (OP == OP_UNFOR) rf = reference_of(ref, ref_stride, reference, b);
+    const V* p = reinterpret_cast<const V*>(packed) + b * ((long long)L::THREADS * width) + q;
+    V acc = V(0);
+    if (OP == OP_UNDELTA || OP == OP_UNZDELTA)
+        acc = reinterpret_cast<const V*>(base)[b * (base_stride / L::PER) + q];
+    V rf = V(0);
+    if (OP == OP_UNFOR) rf = L::rep(reference_of(ref, ref_stride, reference, b));
 
-    StoreTransposed<T> store{out + b * 1024 + lane};
-    decode_rows<T, OP>(p, width, acc, rf, store);
+    if constexpr (ORDER == ORDER_TRANSPOSED) {
+        StoreTransposed<T> store{reinterpret_cast<V*>(out) + b * (1024 / L::PER) + q};
+        decode_rows<T, OP>(p, width, acc, rf, store);
+    } else {
+        static_assert(L::PER > 1, "u32/u64 decode to original order in decode_orig_kernel");
+        StoreRows<T> rows;
+        decode_rows<T, OP>(p, width, acc, rf, rows);
+        store_original(rows.rows, out + b * 1024, q);
+    }
 }
 
-// Original-order decode through shared memory: the row loop of decode_kernel
-// writes each lane's T rows into its segment of the stage; after the barrier
-// consecutive threads store consecutive words of the NB blocks' contiguous
-// output. No thread leaves before the barrier: those of a ragged last CUDA
-// block skip the row loop and the copy stops at the last live block.
+// Original-order decode of u32/u64 through shared memory: the row loop of
+// decode_kernel writes each lane's T rows into its segment of the stage;
+// after the barrier consecutive threads store consecutive words of the NB
+// blocks' contiguous output. No thread leaves before the barrier: those of a
+// ragged last CUDA block skip the row loop and the copy stops at the last
+// live block.
 template <typename T, int OP>
 __global__ void __launch_bounds__(Orig<T>::THREADS)
 decode_orig_kernel(const T* __restrict__ packed, T* __restrict__ out,
                    const T* __restrict__ base, long long base_stride,
                    long long n_blocks, int width) {
     using L = Orig<T>;
-    using Word = typename L::Word;
+    static_assert(Lanes<T>::PER == 1, "u8/u16 decode to original order in decode_kernel");
     __shared__ T stage[L::NB * L::BLOCK_PITCH];
 
     const long long b0 = (long long)blockIdx.x * L::NB;
@@ -219,15 +376,10 @@ decode_orig_kernel(const T* __restrict__ packed, T* __restrict__ out,
     }
     __syncthreads();
 
-    Word* o = reinterpret_cast<Word*>(out + b0 * 1024);
-    const int n_words = live * (1024 / L::PER);
-    for (int i = threadIdx.x; i < n_words; i += L::THREADS) {
-        const int e = i * L::PER;
-        const T* s = stage + L::staged(e / 1024, e % 1024);
-        Word w = s[0];
-#pragma unroll
-        for (int k = 1; k < L::PER; ++k) w |= Word(s[k]) << (k * L::TBITS);
-        o[i] = w;
+    T* o = out + b0 * 1024;
+    const int n_values = live * 1024;
+    for (int i = threadIdx.x; i < n_values; i += L::THREADS) {
+        o[i] = stage[L::staged(i / 1024, i % 1024)];
     }
 }
 
@@ -375,7 +527,8 @@ struct Job {
     cudaStream_t stream;
 };
 
-// CUDA blocks for n_blocks FastLanes blocks at `per_cta` each; 0 = refuse.
+// CUDA blocks for n_blocks FastLanes blocks of `threads_per_block` threads
+// each, `threads_per_cta` to a CUDA block; 0 = refuse.
 unsigned grid_of(long long n_blocks, int threads_per_block, int threads_per_cta) {
     const long long grid = (n_blocks * threads_per_block + threads_per_cta - 1) / threads_per_cta;
     return grid <= 0 || grid > 0x7fffffffLL ? 0u : (unsigned)grid;
@@ -386,15 +539,17 @@ struct Decode {
     template <typename T>
     static int run(const Job& j) {
         using L = Orig<T>;
-        constexpr bool staged = ORDER == ORDER_ORIG;
-        const unsigned grid = grid_of(j.n_blocks, L::LANES, staged ? L::THREADS : kThreads);
+        // u8/u16 decode to original order in decode_kernel, like transposed order
+        constexpr bool staged = ORDER == ORDER_ORIG && Lanes<T>::PER == 1;
+        const unsigned grid = staged ? grid_of(j.n_blocks, L::LANES, L::THREADS)
+                                     : grid_of(j.n_blocks, Lanes<T>::THREADS, kThreads);
         if (grid == 0) return (int)cudaErrorInvalidConfiguration;
         if constexpr (staged) {
             decode_orig_kernel<T, OP><<<grid, L::THREADS, 0, j.stream>>>(
                 (const T*)j.src, (T*)j.out, (const T*)j.base, j.base_stride, j.n_blocks,
                 j.width);
         } else {
-            decode_kernel<T, OP><<<grid, kThreads, 0, j.stream>>>(
+            decode_kernel<T, OP, ORDER><<<grid, kThreads, 0, j.stream>>>(
                 (const T*)j.src, (T*)j.out, (const T*)j.base, j.base_stride,
                 (const T*)j.ref, j.ref_stride, (T)j.reference, j.n_blocks, j.width);
         }
@@ -453,7 +608,9 @@ int decode_orig_by_op(int op, int tbits, const Job& j) {
 // out: (n_blocks, 1024) words. base: per-lane seeds for ops 2 and 3, read at
 // base[b*base_stride + lane] (base_stride 0 = shared, LANES = per block).
 // ref: for op 1, the reference of block b at ref[b*ref_stride], or null for
-// the scalar `reference`, already reduced mod 2^tbits.
+// the scalar `reference`, already reduced mod 2^tbits. packed, out and base
+// are 4-byte aligned (u8/u16 threads access them as 32-bit words; out 16-byte
+// aligned for original order); ref may lie anywhere.
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int fl_decode(int op, int order, int tbits, const void* packed, void* out,
                          const void* base, long long base_stride, const void* ref,

@@ -1,0 +1,131 @@
+"""Two builds of csrc/codecs.cu, side by side on one card: the decode kernels.
+
+    python -m fastlanes_tpu_torch.kernels.ab_decode BASELINE.cu [--bound-ms 0.1]
+
+BASELINE.cu is another revision of csrc/codecs.cu with the same C interface
+(`fl_decode`). Both files are built with the same nvcc flags; what ptxas
+reports for every kernel instantiation of each is printed. Then for every
+dtype, at a size whose bytes bound is at least `--bound-ms` and W = T/4 + 2
+(per-block base and reference), each of the seven decode kernels runs
+through both libraries on the same inputs: the two outputs must be equal bit
+for bit, and each is timed with CUDA events (10 launches back to back,
+median of 10) in turns baseline, checkout, checkout, baseline. Prints one
+JSON line; exits 1 without a CUDA device or when the outputs differ.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from ..core import layout
+from . import build
+from .cuda_codecs import _KERNELS
+
+HBM_BYTES_PER_S = 3.35e12  # published device-memory rate of one H100 SXM
+DECODE = ("unpack", "unfor_pack", "undelta_pack", "unzdelta_pack",
+          "unpack_orig", "undelta_pack_orig", "unzdelta_pack_orig")
+
+
+def time_ms(fn, reps=10, inner=10):
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def launcher(lib, name, dtype, packed, base, refs, width):
+    """A callable that launches kernel `name` of `lib` into a fresh output."""
+    _, op, order = _KERNELS[name]
+    t, n_blocks = layout.bit_width(dtype), packed.shape[0]
+    base_ptr, base_stride = (base.data_ptr(), layout.lanes(dtype)) if "delta" in name \
+        else (None, 0)
+    ref_ptr, ref_stride = (refs.data_ptr(), 1) if name == "unfor_pack" else (None, 0)
+    stream = torch.cuda.current_stream().cuda_stream or None
+
+    def run():
+        out = torch.empty((n_blocks, layout.BLOCK), dtype=packed.dtype, device=packed.device)
+        err = lib.fl_decode(op, order, t, packed.data_ptr(), out.data_ptr(), base_ptr,
+                            base_stride, ref_ptr, ref_stride, 0, n_blocks, width, stream)
+        if err:
+            raise RuntimeError(f"{name} {dtype}: {lib.fl_error_string(err).decode()}")
+        return out
+    return run
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("baseline", help="another revision of csrc/codecs.cu")
+    parser.add_argument("--bound-ms", type=float, default=0.1)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("ab_decode needs a CUDA device", file=sys.stderr)
+        return 1
+    libs, ptxas = {}, {}
+    for label, source in (("baseline", os.path.abspath(args.baseline)),
+                          ("checkout", build.SOURCES[0])):
+        path = os.path.join(build.BUILD_DIR, "ab", f"lib_{label}.so")
+        _, log = build.compile_library([source], path)
+        libs[label], ptxas[label] = build.bind(path), build.ptxas_usage(log)
+    rng = np.random.default_rng(20240607)
+    rows, same = [], True
+    for dtype in layout.DTYPES:
+        t, nl, np_dt = layout.bit_width(dtype), layout.lanes(dtype), layout.np_dtype(dtype)
+        width = t // 4 + 2
+        plen = layout.packed_len(dtype, width)
+        block_bytes = (layout.BLOCK + plen + nl) * t // 8
+        blocks = -(-int(args.bound_ms * 1e-3 * HBM_BYTES_PER_S / block_bytes) // 1024) * 1024
+        reps = blocks // 1024
+
+        def draw(*shape):
+            return torch.from_numpy(rng.integers(0, 1 << min(t, 63), size=shape,
+                                                 dtype=np.uint64).astype(np_dt)).cuda()
+        packed = draw(1024, plen).repeat(reps, 1)
+        base, refs = draw(1024, nl).repeat(reps, 1), draw(1024).repeat(reps)
+        for name in DECODE:
+            runs = {label: launcher(lib, name, dtype, packed, base, refs, width)
+                    for label, lib in libs.items()}
+            a, b = runs["baseline"](), runs["checkout"]()
+            torch.cuda.synchronize()
+            equal = torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+            same &= equal
+            del a, b
+            ms = {label: [] for label in runs}
+            for label in ("baseline", "checkout", "checkout", "baseline"):
+                ms[label].append(time_ms(runs[label]))
+            moved = (packed.numel() + reps * 1024 * 1024) * t // 8
+            moved += {"unfor_pack": refs.numel(), "undelta_pack": base.numel(),
+                      "unzdelta_pack": base.numel(), "undelta_pack_orig": base.numel(),
+                      "unzdelta_pack_orig": base.numel()}.get(name, 0) * t // 8
+            bound = moved / HBM_BYTES_PER_S * 1e3
+            row = {"kernel": name, "dtype": dtype, "width": width, "blocks": blocks,
+                   "equal": equal, "bound_ms": bound}
+            for label, times in ms.items():
+                row[label + "_ms"] = times
+                row[label + "_share_of_bound"] = bound / statistics.mean(times)
+            rows.append(row)
+        del packed, base, refs
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(json.dumps({"card": smi, "ptxas": ptxas, "rows": rows, "equal": same}), flush=True)
+    return 0 if same else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -27,18 +27,24 @@ The eleven are four templated kernels in csrc/codecs.cu (built by
 kernels/build.py) around one decode and one encode row loop. Bound: memory
 traffic only. A launch moves B*1024*W/8 packed bytes and B*1024*T/8 value
 bytes (+ B*LANES*T/8 for a per-block base), with a few integer operations
-per value. The design answers that bound with one thread per (block, lane):
-the lane's words, its running sum or previous value and the word under
-construction stay in registers, and every global load and store is
-contiguous across the threads of a warp. In transposed order that holds row
-by row. In original order a lane's T rows are T consecutive values, so those
-kernels stage the block in shared memory and move it with consecutive
-threads on consecutive words.
+per value, so a kernel reaches the bound only if each warp-wide access moves
+whole sectors. The decode kernels give one thread PER = 4 / sizeof(T)
+adjacent lanes (4 for u8, 2 for u16, 1 for u32/u64): those lanes are one
+aligned 32-bit word in every word group, base row and transposed row, so the
+thread loads and stores 32-bit words and a warp moves 128 bytes per access
+for every dtype; the row loop runs lane-wise on the word (SWAR). In original
+order a u8/u16 thread turns its row words into words of consecutive values
+of one lane with a byte transpose in registers and stores them straight out;
+u32/u64, whose lane segments are 128/512 bytes, stage the block in shared
+memory and move it with consecutive threads on consecutive words, as the
+encode kernels do for every dtype (one thread per (block, lane)). Every
+source and base goes to the kernels 16-byte aligned (`_aligned`).
 
 Beside each kernel stands its plain PyTorch version (`*_plain`, built from
 ops/). A wrapper takes the plain version only for a tensor that lies on the
 CPU; for a CUDA tensor it launches the kernel or raises. `LAUNCHES[name]`
-counts the kernel launches of each wrapper.
+counts the kernel launches of each wrapper, `LAUNCHES_BY_DTYPE[name, dtype]`
+the same launches by dtype.
 
 `pack_map` takes a Python producer, which cannot enter a compiled kernel: it
 is the plain version on every device, as it is ops-only in the JAX package
@@ -73,11 +79,14 @@ _ZIGZAG_ENCODE_OP = 3  # delta_pack_orig(zigzag=True)
 
 #: kernel launches per wrapper (plain integers; reset by assigning 0)
 LAUNCHES = {name: 0 for name in _KERNELS}
+#: the same launches per (wrapper, dtype); a pair appears at its first launch
+LAUNCHES_BY_DTYPE = {}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCHES_BY_DTYPE.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -177,6 +186,7 @@ def _launch(name, src2d, base, reference, width, dtype, zigzag=False):
             f"CUDA launch of {name} ({dtype} W={width} B={n_blocks}) failed: "
             f"{lib.fl_error_string(err).decode()} ({err})")
     LAUNCHES[name] += 1
+    LAUNCHES_BY_DTYPE[name, dtype] = LAUNCHES_BY_DTYPE.get((name, dtype), 0) + 1
     return result
 
 
@@ -201,13 +211,13 @@ def _prep_source(src, width, dtype, encode):
 
 
 def _prep_base(base, dtype, src2d):
-    """Base for the kernel: unsigned, contiguous, on the source's device,
-    (LANES,) shared or (B, LANES) per-block. A numpy base follows the
-    source to its device; a tensor on another device raises."""
+    """Base for the kernel: unsigned, contiguous, aligned, on the source's
+    device, (LANES,) shared or (B, LANES) per-block. A numpy base follows
+    the source to its device; a tensor on another device raises."""
     if not isinstance(base, torch.Tensor):
         base = eng.as_unsigned(base, dtype).to(src2d.device)
     vec = ops_delta.base_vec(base, dtype, src2d)
-    return eng.from_vec(vec, dtype).contiguous()
+    return _aligned(eng.from_vec(vec, dtype))
 
 
 def _prep_reference(reference, dtype, src2d):
@@ -231,7 +241,8 @@ def _prep_reference(reference, dtype, src2d):
 
 def _aligned(arr):
     """Contiguous and 16-byte aligned, as the kernels' word accesses
-    need (a view into the middle of a u8/u16 buffer may not be)."""
+    need: a u8/u16 decode thread reads its packed words and its base as
+    32-bit words, and a view into the middle of a buffer may not be."""
     arr = arr.contiguous()
     return arr if arr.data_ptr() % 16 == 0 else arr.clone()
 

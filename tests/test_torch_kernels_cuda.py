@@ -189,6 +189,46 @@ def test_unaligned_views_are_copied_before_the_launch(card):
     assert torch.equal(ck.undelta_pack_orig(packed, base, 8, "u8"), values)
 
 
+@pytest.mark.parametrize("dt,offset", [("u8", 1), ("u8", 2), ("u8", 3), ("u16", 1)],
+                         ids=["u8-1B", "u8-2B", "u8-3B", "u16-2B"])
+def test_unaligned_base_and_packed_views(card, dt, offset):
+    """Packed words and a (B, LANES) or (LANES,) base that start `offset`
+    elements (1-3 bytes) into their buffers: u8/u16 decode threads read both
+    as 32-bit words, so the wrapper realigns both before the launch."""
+    rng = np.random.default_rng(5000 + 10 * layout.bit_width(dt) + offset)
+    t, nl, np_dt = layout.bit_width(dt), layout.lanes(dt), layout.np_dtype(dt)
+    w = t // 2 + 1
+    words = rng.integers(0, 1 << t, size=(B, layout.packed_len(dt, w)),
+                         dtype=np.uint64).astype(np_dt)
+    bases = rng.integers(0, 1 << t, size=(B, nl), dtype=np.uint64).astype(np_dt)
+
+    def view_at(arr):
+        flat = torch.from_numpy(arr.reshape(-1)).to(card)
+        buf = torch.empty(flat.numel() + offset, dtype=flat.dtype, device=card)
+        buf[offset:] = flat
+        view = buf[offset:].view(arr.shape)
+        assert view.data_ptr() % 4 != 0
+        return view
+
+    packed, base, shared = view_at(words), view_at(bases), view_at(bases[0])
+    before = dict(ck.LAUNCHES)
+    for name, seeds, gold_base in (("undelta_pack", base, bases),
+                                   ("undelta_pack_orig", base, bases),
+                                   ("undelta_pack", shared, np.broadcast_to(bases[0], bases.shape)),
+                                   ("undelta_pack_orig", shared,
+                                    np.broadcast_to(bases[0], bases.shape))):
+        got = getattr(ck, name)(packed, seeds, w, dt)
+        want = getattr(ck, name + "_plain")(packed, seeds, w, dt)
+        torch.cuda.synchronize()
+        assert torch.equal(signed(got), signed(want)), (name, tuple(seeds.shape))
+        gold = ref.undelta_pack(words, gold_base, w, dt)
+        if name.endswith("_orig"):
+            gold = ref.untranspose(gold, dt)
+        assert np.array_equal(got.cpu().numpy(), gold), (name, tuple(seeds.shape))
+    assert ck.LAUNCHES["undelta_pack"] == before["undelta_pack"] + 2
+    assert ck.LAUNCHES["undelta_pack_orig"] == before["undelta_pack_orig"] + 2
+
+
 def test_public_names_launch_the_kernels(card):
     import fastlanes_tpu_torch as ft
 

@@ -51,41 +51,15 @@ def test_orig_entries_match_reference(op, dt, w, rng):
 # ---------------------------------------------------------------------------
 # the fused original-order entries: every edge width, shared and per-block
 # base, one and three blocks, against the reference's own *_orig entries on
-# their default route (tolerance 0: integer codecs)
+# their default route (tolerance 0: integer codecs). The JAX side runs once
+# per (entry, dtype, width, base form) on three blocks, in a module fixture;
+# a one-block case holds the port's one-block output against its first block
+# (the blocks are independent).
 
 EDGE_CASES = [(dt, w) for dt in layout.DTYPES
               for w in sorted({0, 1, layout.bit_width(dt) // 2 - 1,
                                layout.bit_width(dt) - 1, layout.bit_width(dt)})]
-
-
-def _reference_entry(op, jax_args, w, dt):
-    return jax_out(getattr(pk, op)(*jax_args, w, dt), dt)
-
-
-@pytest.mark.parametrize("n_blocks", [1, 3])
-@pytest.mark.parametrize("shared_base", [False, True], ids=["per_block", "shared"])
-@pytest.mark.parametrize("op", ["undelta_pack_orig", "unzdelta_pack_orig"])
-@pytest.mark.parametrize("dt,w", EDGE_CASES)
-def test_orig_delta_decodes_match_reference_entries(op, dt, w, shared_base, n_blocks, rng):
-    _, packed, bases = make_case(rng, dt, w, n_blocks=n_blocks)
-    base = bases[0] if shared_base else bases
-    got = port_out(getattr(ck, op)(port_in(packed, dt), port_in(base, dt), w, dt), dt)
-    if op == "undelta_pack_orig":
-        gold = ref.untranspose(ref.undelta_pack(
-            packed, np.broadcast_to(base, bases.shape), w, dt), dt)
-    else:
-        gold = ref.untranspose(np_unzdelta(packed, base, w, dt), dt)
-    same(got, gold)
-    same(got, _reference_entry(op, (to_jax_form(packed, dt), to_jax_form(base, dt)), w, dt))
-
-
-@pytest.mark.parametrize("n_blocks", [1, 3])
-@pytest.mark.parametrize("dt,w", EDGE_CASES)
-def test_unpack_orig_matches_reference_entry(dt, w, n_blocks, rng):
-    _, packed, _ = make_case(rng, dt, w, n_blocks=n_blocks)
-    got = port_out(ck.unpack_orig(port_in(packed, dt), w, dt), dt)
-    same(got, ref.untranspose(ref.unpack(packed, w, dt), dt))
-    same(got, _reference_entry("unpack_orig", (to_jax_form(packed, dt),), w, dt))
+EDGE_BLOCKS = 3
 
 
 def _original_order_values(rng, dt, n_blocks):
@@ -97,14 +71,78 @@ def _original_order_values(rng, dt, n_blocks):
         layout.np_dtype(dt))
 
 
+@pytest.fixture(scope="module")
+def edge_reference():
+    """(dt, w) -> the EDGE_BLOCKS-block inputs (packed, bases, original-order
+    values), made from a seed of their own, and `entry(name, *key)`: the
+    reference's entry on them, computed once per key."""
+    inputs, outputs = {}, {}
+
+    def case(dt, w):
+        if (dt, w) not in inputs:
+            rng = np.random.default_rng(1000 * layout.bit_width(dt) + w)
+            _, packed, bases = make_case(rng, dt, w, n_blocks=EDGE_BLOCKS)
+            inputs[dt, w] = (packed, bases, _original_order_values(rng, dt, EDGE_BLOCKS))
+        return inputs[dt, w]
+
+    def entry(op, dt, w, form):
+        """form: "shared" or "per_block" base, or the zigzag flag of the encode."""
+        key = (op, dt, w, form)
+        if key not in outputs:
+            packed, bases, values = case(dt, w)
+            if op == "delta_pack_orig":
+                want_p, want_b = pk.delta_pack_orig(to_jax_form(values, dt), w, dt,
+                                                    zigzag=form)
+                outputs[key] = (jax_out(want_p, dt), jax_out(want_b, dt))
+            else:
+                args = (packed,) if op == "unpack_orig" else \
+                    (packed, bases[0] if form == "shared" else bases)
+                outputs[key] = jax_out(getattr(pk, op)(
+                    *(to_jax_form(a, dt) for a in args), w, dt), dt)
+        return outputs[key]
+
+    return case, entry
+
+
+@pytest.mark.parametrize("n_blocks", [1, 3])
+@pytest.mark.parametrize("shared_base", [False, True], ids=["per_block", "shared"])
+@pytest.mark.parametrize("op", ["undelta_pack_orig", "unzdelta_pack_orig"])
+@pytest.mark.parametrize("dt,w", EDGE_CASES)
+def test_orig_delta_decodes_match_reference_entries(op, dt, w, shared_base, n_blocks,
+                                                    edge_reference):
+    case, entry = edge_reference
+    packed, bases, _ = case(dt, w)
+    packed, bases = packed[:n_blocks], bases[:n_blocks]
+    base = bases[0] if shared_base else bases
+    got = port_out(getattr(ck, op)(port_in(packed, dt), port_in(base, dt), w, dt), dt)
+    if op == "undelta_pack_orig":
+        gold = ref.untranspose(ref.undelta_pack(
+            packed, np.broadcast_to(base, bases.shape), w, dt), dt)
+    else:
+        gold = ref.untranspose(np_unzdelta(packed, base, w, dt), dt)
+    same(got, gold)
+    same(got, entry(op, dt, w, "shared" if shared_base else "per_block")[:n_blocks])
+
+
+@pytest.mark.parametrize("n_blocks", [1, 3])
+@pytest.mark.parametrize("dt,w", EDGE_CASES)
+def test_unpack_orig_matches_reference_entry(dt, w, n_blocks, edge_reference):
+    case, entry = edge_reference
+    packed = case(dt, w)[0][:n_blocks]
+    got = port_out(ck.unpack_orig(port_in(packed, dt), w, dt), dt)
+    same(got, ref.untranspose(ref.unpack(packed, w, dt), dt))
+    same(got, entry("unpack_orig", dt, w, None)[:n_blocks])
+
+
 @pytest.mark.parametrize("n_blocks", [1, 3])
 @pytest.mark.parametrize("zigzag", [False, True], ids=["plain", "zigzag"])
 @pytest.mark.parametrize("dt,w", EDGE_CASES)
-def test_delta_pack_orig_matches_reference_entry(dt, w, zigzag, n_blocks, rng):
+def test_delta_pack_orig_matches_reference_entry(dt, w, zigzag, n_blocks, edge_reference):
     """(packed, base) of the encode dual against the reference's entry on its
     default route and on `compose` with the Pallas kernel in interpret mode
-    (one middle width per dtype), and against the NumPy oracle."""
-    values = _original_order_values(rng, dt, n_blocks)
+    (one middle width per dtype, three blocks), and against the NumPy oracle."""
+    case, entry = edge_reference
+    values = case(dt, w)[2][:n_blocks]
     packed, base = ck.delta_pack_orig(port_in(values, dt), w, dt, zigzag=zigzag)
     packed, base = port_out(packed, dt), port_out(base, dt)
     nl = layout.lanes(dt)
@@ -116,12 +154,12 @@ def test_delta_pack_orig_matches_reference_entry(dt, w, zigzag, n_blocks, rng):
     same(base, np.ascontiguousarray(tr[:, :nl]))
     same(packed, ref.pack(deltas & layout.np_dtype(dt).type((1 << w) - 1)
                           if w < layout.bit_width(dt) else deltas, w, dt))
-    routes = [{}]
+    want_p, want_b = entry("delta_pack_orig", dt, w, zigzag)
+    same(packed, want_p[:n_blocks])
+    same(base, want_b[:n_blocks])
     if w == layout.bit_width(dt) // 2 - 1 and n_blocks == 3:
-        routes.append({"strategy": "compose", "interpret": True})
-    for kwargs in routes:
         want_p, want_b = pk.delta_pack_orig(to_jax_form(values, dt), w, dt, zigzag=zigzag,
-                                            **kwargs)
+                                            strategy="compose", interpret=True)
         same(packed, jax_out(want_p, dt))
         same(base, jax_out(want_b, dt))
 
