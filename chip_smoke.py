@@ -30,8 +30,8 @@ eight operators on an integer, a float, a date and a string column) and
 counted: natural-order kernels on the sorted columns, original-order kernels
 only under a validity bitmap or a padded tail, none for a probe the zone maps
 resolve. Last it times each kernel at the largest shape its path gave it,
-beside its bound, its plain version and a device copy, the seven decode
-kernels of every dtype at a size whose bytes bound is at least 0.1 ms, and
+beside its bound, its plain version and a device copy, all eleven kernels
+of every dtype at a size whose bytes bound is at least 0.1 ms, and
 each read, encode and scan end to end. On every driven path, each (kernel,
 dtype) pair is held against its plain version on the tensors of its largest
 launch there, and the `kernels` line counts the launches by dtype.
@@ -1460,19 +1460,17 @@ def dtype_rows(rng) -> list:
     return rows
 
 
-#: the decode rows of the kernel table, timed by dtype at a >= 0.1 ms bound
-DECODE_KERNELS = ("unpack", "unfor_pack", "undelta_pack", "unzdelta_pack",
-                  "unpack_orig", "undelta_pack_orig", "unzdelta_pack_orig")
-
-
 def dtype_rows_at_bound(rng, bound_ms: float = 0.1) -> list:
-    """The seven decode kernels (rows 1-4 and 8-10) and delta_pack_orig (row
-    11) for every dtype at a size whose bytes bound is at least `bound_ms`,
-    so that a reading under half of its bound can be told from launch
-    latency; u32 is the baseline of the same call. A clone of the values
-    beside them. W = T/4 + 2, per-block base, per-block reference. Each
-    kernel's whole output is held bit for bit against its plain version on
-    the same inputs before it is timed."""
+    """All eleven kernels for every dtype: the seven decode kernels (rows 1-4
+    and 8-10), the three transposed-order encode kernels (rows 5-7) and
+    delta_pack_orig plain and zigzag (row 11), at a size whose bytes bound is
+    at least `bound_ms`, so that a reading under half of its bound can be
+    told from launch latency; u32 is the baseline of the same call. A clone
+    of the values beside them. W = T/4 + 2, per-block base, per-block
+    reference. An encode moves its values, its packed words and its base or
+    references (delta_pack_orig writes its base). Each kernel's whole output
+    is held bit for bit against its plain version on the same inputs before
+    it is timed."""
     rows = []
     for dtype in layout.DTYPES:
         t, nl, np_dt = layout.bit_width(dtype), layout.lanes(dtype), layout.np_dtype(dtype)
@@ -1501,8 +1499,12 @@ def dtype_rows_at_bound(rng, bound_ms: float = 0.1) -> list:
         cases += [(name, packed, base, sizes["packed"] + sizes["base"] + sizes["values"])
                   for name in ("undelta_pack", "unzdelta_pack", "undelta_pack_orig",
                                "unzdelta_pack_orig")]
-        cases += [("delta_pack_orig", values, False,
-                   sizes["packed"] + sizes["base"] + sizes["values"])]
+        cases += [("pack", values, None, sizes["values"] + sizes["packed"]),
+                  ("delta_pack", values, base,
+                   sizes["values"] + sizes["base"] + sizes["packed"]),
+                  ("for_pack", values, refs, sizes["values"] + sizes["refs"] + sizes["packed"])]
+        cases += [("delta_pack_orig", values, zigzag,
+                   sizes["packed"] + sizes["base"] + sizes["values"]) for zigzag in (False, True)]
         for name, src, param, moved in cases:
             got = call_kernel(name, src, param, width, dtype)
             want = call_kernel(name, src, param, width, dtype, plain=True)
@@ -1514,8 +1516,9 @@ def dtype_rows_at_bound(rng, bound_ms: float = 0.1) -> list:
             del got, want
             ms = time_cuda(lambda: call_kernel(name, src, param, width, dtype), 10, inner=10)
             bound = moved / HBM_BYTES_PER_S * 1e3
-            row[name] = {"ms": ms, "bound_ms": bound, "share_of_bound": bound / ms,
-                         "bytes_moved": moved, "max_abs_err": err}
+            row[name + ("_zigzag" if param is True else "")] = {
+                "ms": ms, "bound_ms": bound, "share_of_bound": bound / ms,
+                "bytes_moved": moved, "max_abs_err": err}
         rows.append(row)
         del packed, base, refs, values
     return rows

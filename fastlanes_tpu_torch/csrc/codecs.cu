@@ -10,7 +10,8 @@
 // u32/u64; the in-kernel relayout that benchmarks/exp_untranspose_pallas.py
 // tried on the TPU, _kernel_pD :164, _kernel_pE :171, _kernel_pG :267, whose
 // compiler refused it; the zigzag hook of pallas_codecs.py:841) and
-// delta_pack_orig, plain and zigzag (encode_orig_kernel).
+// delta_pack_orig, plain and zigzag (encode_kernel for u8/u16,
+// encode_orig_kernel for u32/u64).
 //
 // Layout facts the design rests on (core/layout.py): packed word w of lane l
 // of block b is packed[b*plen + LANES*w + l] with plen = LANES*W, and row r
@@ -25,38 +26,42 @@
 // kernel reaches that bound only if every warp-wide load and store moves
 // whole 32-byte sectors, 128 bytes or more per instruction.
 //
-// Decode (decode_kernel, both orders for u8/u16, transposed order for
-// u32/u64): one thread owns PER = 4 / sizeof(T) ADJACENT lanes of one block
-// for T narrower than 32 bits (4 for u8, 2 for u16), else one lane (Lanes<T>).
-// Those PER lanes are one aligned 32-bit word in every word group and in
-// every transposed row, so the thread loads its packed words and the base as
-// 32-bit words and, in transposed order, stores each row as one 32-bit word:
-// a FastLanes block is one warp of 32 threads (u64: 16) and each warp-wide
-// access is 128 contiguous bytes for every dtype. With one lane per thread a
-// u8 warp moved 32 bytes per instruction, 4x the instructions per byte, and
-// reached a third of the bound. The row loop runs lane-wise on the 32-bit
-// word (SWAR): masks are the W-bit mask replicated into every lane, the
-// straddling row masks both parts to their lane before it joins them, and the
-// adds of unfor and of the running sum add each lane's top bit apart so that
-// no carry crosses into the next lane; unzigzag masks the bit that the shift
-// brings in from the next lane. The split into PER scalar registers would run
-// the scalar loop PER times over; SWAR costs a few operations per row for
-// all PER lanes at once. For u32/u64 (PER = 1) every helper is the scalar
+// Decode (decode_kernel) and encode (encode_kernel), both orders for u8/u16
+// and transposed order for u32/u64: one thread owns PER = 4 / sizeof(T)
+// ADJACENT lanes of one block for T narrower than 32 bits (4 for u8, 2 for
+// u16), else one lane (Lanes<T>). Those PER lanes are one aligned 32-bit word
+// in every word group, base row and transposed row, so the thread loads and
+// stores its packed words, its base and, in transposed order, each row as
+// 32-bit words: a FastLanes block is one warp of 32 threads (u64: 16) and
+// each warp-wide access is 128 contiguous bytes for every dtype. With one
+// lane per thread a u8 warp moved 32 bytes per instruction, 4x the
+// instructions per byte, and reached a third of the bound. The row loops run
+// lane-wise on the 32-bit word (SWAR): masks are the W-bit mask replicated
+// into every lane; the decode's straddling row masks both parts to their lane
+// before it joins them, and the encode cuts each row to its lane before it
+// shifts it UP into the word in flight and cuts the carried remainder after
+// shifting it down; adds (unfor, running sum) and subtracts (delta, FoR)
+// treat each lane's top bit apart so that no carry or borrow crosses into
+// the next lane; unzigzag and zigzag mask the bit that their shift brings in
+// from the next lane. The split into PER scalar registers would run the
+// scalar loop PER times over; SWAR costs a few operations per row for all
+// PER lanes at once. For u32/u64 (PER = 1) every helper is the scalar
 // operation of the one-lane loop.
 //
 // In original order a lane's T rows are T consecutive values. A u8/u16
 // thread keeps its T row words in registers and turns them with a 4x4 (u8)
 // or 2x2 (u16) byte transpose (__byte_perm) into words of 4 (2) consecutive
-// values of one lane. u8: the 8 rows of a lane are 8 bytes, one 8-byte store;
-// the warp's stores for one lane index cover four 64-byte runs. u16: the 16
-// rows of a lane are 32 bytes, one sector; the thread pair (2p, 2p+1) swaps
-// halves with one shuffle per word, so that in each 16-byte store the pair
-// writes both halves of the same lane and the warp covers four 128-byte
-// lines. Nothing is staged and no thread waits at a barrier. u32/u64 keep
-// decode_orig_kernel: a lane's 32 (64) rows are 128 (512) bytes, which a
-// thread cannot store as a whole, so that kernel stages the block in shared
-// memory and moves it out with consecutive threads on consecutive words. The
-// encode kernels keep one thread per (block, lane) for every dtype.
+// values of one lane; both transposes are their own inverses, so the encode
+// loads what the decode stores and turns it back the same way. u8: the 8 rows
+// of a lane are 8 bytes, one 8-byte access; the warp's accesses for one lane
+// index cover four 64-byte runs. u16: the 16 rows of a lane are 32 bytes, one
+// sector; the thread pair (2p, 2p+1) swaps halves with one shuffle per word,
+// so that in each 16-byte access the pair covers both halves of the same lane
+// and the warp covers four 128-byte lines. Nothing is staged and no thread
+// waits at a barrier. u32/u64 keep decode_orig_kernel and encode_orig_kernel:
+// a lane's 32 (64) rows are 128 (512) bytes, which a thread cannot move as a
+// whole, so those kernels stage the block in shared memory and move it with
+// consecutive threads on consecutive words.
 //
 // The bit width W is a run-time argument (one instantiation per dtype, op
 // and order). A shift by T is undefined in C++, so the W-bit mask, the
@@ -91,9 +96,9 @@ __host__ __device__ constexpr int row_offset(int r) {
     return (r % 8) * 128 + fl_order(r / 8) * 16;
 }
 
-// What one decode thread holds: PER adjacent lanes of one FastLanes block in
-// one register V (a 32-bit word for u8/u16, T itself for u32/u64), and the
-// lane-wise operations of the row loop on it. For PER = 1 each operation is
+// What one thread holds: PER adjacent lanes of one FastLanes block in one
+// register V (a 32-bit word for u8/u16, T itself for u32/u64), and the
+// lane-wise operations of the row loops on it. For PER = 1 each operation is
 // the scalar one.
 template <typename T>
 struct Lanes {
@@ -133,18 +138,52 @@ struct Lanes {
         else return V((v & low_bits(TBITS - shift)) |
                       ((next & low_bits(remaining)) << (TBITS - shift)));
     }
+
+    // The encode's operations.
+    // wrapping subtract in every lane: the top bit of a is set and that of b
+    // cleared, so no lane borrows from the next; the xor then gives each
+    // lane's top bit its true value, a ^ b ^ borrow
+    __device__ __forceinline__ static V sub(V a, V b) {
+        if constexpr (PER == 1) return V(a - b);
+        else return V(((a | HIGH) - (b & ~HIGH)) ^ ((a ^ ~b) & HIGH));
+    }
+    // (d << 1) ^ (d >> (T-1)) with the arithmetic shift in every lane; the
+    // left shift brings the lane below's top bit into bit 0, which the mask
+    // clears
+    __device__ __forceinline__ static V zigzag(V d) {
+        if constexpr (PER == 1) {
+            using S = typename std::make_signed<T>::type;
+            return V(V(d << 1) ^ V(S(d) >> (TBITS - 1)));
+        } else {
+            return V(((d << 1) & ~ONES) ^ (((d >> (TBITS - 1)) & ONES) * V(T(~T(0)))));
+        }
+    }
+    // the row (cut to W bits) at bit `shift` of the word in flight: with
+    // PER > 1 only its TBITS - shift low bits fit in the lane, the rest is cut
+    // before the shift so that it does not reach the lane above
+    __device__ __forceinline__ static V shift_in(V src, int shift) {
+        if constexpr (PER == 1) return V(src << shift);
+        else return V((src & low_bits(TBITS - shift)) << shift);
+    }
+    // the `remaining` high bits of a W-bit row that did not fit, which open
+    // the next word; with PER > 1 the lane above's low bits that the shift
+    // brings down are cut. width - remaining is in [1, W] and W < TBITS.
+    __device__ __forceinline__ static V carry(V src, int width, int remaining) {
+        if constexpr (PER == 1) return V(src >> (width - remaining));
+        else return V((src >> (width - remaining)) & low_bits(remaining));
+    }
 };
 
-// Shapes of the staged original-order kernels (every encode_orig_kernel;
-// decode_orig_kernel of u32/u64). A CUDA block of THREADS threads holds
-// NB FastLanes blocks in shared memory, each as LANES segments of T values
-// padded by one element (SEG_PITCH = T + 1): with that pitch neither the
-// lane-major accesses of the row loop (a warp touches one row of 32 segments)
-// nor the row-major accesses of the copy (a warp walks along segments) meet
-// in one bank. u64 takes 64 threads so that the stage stays at 33 KB; the
-// others take 256 (u8 2.3 KB, u16 8.7 KB, u32 33.8 KB). The copy moves WORDs
-// of at least 4 bytes, so a warp moves 128 bytes or more per instruction for
-// every dtype.
+// Where original order keeps a lane's rows (seg, every dtype), and the shapes
+// of the staged original-order kernels of u32/u64 (decode_orig_kernel,
+// encode_orig_kernel). A CUDA block of THREADS threads holds NB FastLanes
+// blocks in shared memory, each as LANES segments of T values padded by one
+// element (SEG_PITCH = T + 1): with that pitch neither the lane-major
+// accesses of the row loop (a warp touches one row of 32 segments) nor the
+// row-major accesses of the copy (a warp walks along segments) meet in one
+// bank. u64 takes 64 threads so that the stage stays at 33 KB; u32 takes 256
+// (33.8 KB). The copy moves one value of 4 or 8 bytes a step, so a warp
+// moves 128 bytes or more per instruction.
 template <typename T>
 struct Orig {
     static constexpr int TBITS = sizeof(T) * 8;
@@ -153,8 +192,6 @@ struct Orig {
     static constexpr int NB = THREADS / LANES;
     static constexpr int SEG_PITCH = TBITS + 1;
     static constexpr int BLOCK_PITCH = LANES * SEG_PITCH;
-    using Word = typename Lanes<T>::V;              // what the copy moves
-    static constexpr int PER = Lanes<T>::PER;       // values per Word
 
     // The segment of original order that holds the T rows of `lane`:
     // (lane % 16) * (64 / T) + bitreverse(lane / 16), the reversal taken over
@@ -185,9 +222,11 @@ struct StoreStaged {  // the lane's segment in shared memory (PER = 1)
 };
 
 template <typename T>
-struct StoreRows {  // the T row words, kept in registers for the byte transpose
-    typename Lanes<T>::V rows[Lanes<T>::TBITS];
-    __device__ __forceinline__ void operator()(int r, typename Lanes<T>::V v) { rows[r] = v; }
+struct Rows {  // the T row words, kept in registers for the byte transpose
+    using V = typename Lanes<T>::V;
+    V rows[Lanes<T>::TBITS];
+    __device__ __forceinline__ void operator()(int r, V v) { rows[r] = v; }  // decode: store
+    __device__ __forceinline__ V operator()(int r) const { return rows[r]; }  // encode: load
 };
 
 // The decode row loop of one thread's PER lanes: p points at their first
@@ -239,29 +278,47 @@ __device__ __forceinline__ void decode_rows(const typename Lanes<T>::V* __restri
     }
 }
 
-// Original order from the row words of a u8 thread (lanes 4q..4q+3): a 4x4
-// byte transpose of rows 4h..4h+3 gives each lane one word of its rows
-// 4h..4h+3, and the lane's 8 rows (8 consecutive values) are one 8-byte store
-// into its segment. For one k the warp's stores fill four 64-byte runs.
+// The 4x4 byte transpose of a u8 thread: byte j of word x[i] becomes byte i
+// of word y[j]. With rows 4h..4h+3 as x (byte l of a row word is lane 4q+l)
+// it gives each lane one word of its rows 4h..4h+3, and back: it is its own
+// inverse.
+__device__ __forceinline__ void transpose_4x4(uint32_t x0, uint32_t x1, uint32_t x2,
+                                              uint32_t x3, uint32_t* y) {
+    const uint32_t t0 = __byte_perm(x0, x1, 0x5140);  // x0b0 x1b0 x0b1 x1b1
+    const uint32_t t1 = __byte_perm(x0, x1, 0x7362);  // x0b2 x1b2 x0b3 x1b3
+    const uint32_t t2 = __byte_perm(x2, x3, 0x5140);
+    const uint32_t t3 = __byte_perm(x2, x3, 0x7362);
+    y[0] = __byte_perm(t0, t2, 0x5410);  // x0b0 x1b0 x2b0 x3b0
+    y[1] = __byte_perm(t0, t2, 0x7632);
+    y[2] = __byte_perm(t1, t3, 0x5410);
+    y[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// Original order from the row words of a u8 thread (lanes 4q..4q+3): the
+// transposes of rows 0-3 and 4-7 give each lane its 8 rows (8 consecutive
+// values), one 8-byte store into its segment. For one k the warp's stores
+// fill four 64-byte runs.
 __device__ __forceinline__ void store_original(const uint32_t (&rows)[8], uint8_t* out, int q) {
-    uint32_t w[4][2];
+    uint32_t w[2][4];  // w[h][k]: rows 4h..4h+3 of lane 4q+k
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-        const int r = 4 * h;  // rows r..r+3; byte l of a row word is lane 4q+l
-        const uint32_t t0 = __byte_perm(rows[r], rows[r + 1], 0x5140);  // r0l0 r1l0 r0l1 r1l1
-        const uint32_t t1 = __byte_perm(rows[r], rows[r + 1], 0x7362);  // r0l2 r1l2 r0l3 r1l3
-        const uint32_t t2 = __byte_perm(rows[r + 2], rows[r + 3], 0x5140);
-        const uint32_t t3 = __byte_perm(rows[r + 2], rows[r + 3], 0x7362);
-        w[0][h] = __byte_perm(t0, t2, 0x5410);  // r0l0 r1l0 r2l0 r3l0
-        w[1][h] = __byte_perm(t0, t2, 0x7632);
-        w[2][h] = __byte_perm(t1, t3, 0x5410);
-        w[3][h] = __byte_perm(t1, t3, 0x7632);
-    }
+    for (int h = 0; h < 2; ++h)
+        transpose_4x4(rows[4 * h], rows[4 * h + 1], rows[4 * h + 2], rows[4 * h + 3], w[h]);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
         *reinterpret_cast<uint2*>(out + Orig<uint8_t>::seg(4 * q + k) * 8) =
-            make_uint2(w[k][0], w[k][1]);
+            make_uint2(w[0][k], w[1][k]);
     }
+}
+
+// The encode's way back: lane 4q+k's 8 values are one 8-byte load from its
+// segment, and the same transposes give the 8 row words.
+__device__ __forceinline__ void load_original(const uint8_t* in, int q, uint32_t (&rows)[8]) {
+    uint2 v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+        v[k] = *reinterpret_cast<const uint2*>(in + Orig<uint8_t>::seg(4 * q + k) * 8);
+    transpose_4x4(v[0].x, v[1].x, v[2].x, v[3].x, rows);
+    transpose_4x4(v[0].y, v[1].y, v[2].y, v[3].y, rows + 4);
 }
 
 // The same for a u16 thread (lanes 2q, 2q+1): a 2x2 transpose of rows 2j,
@@ -299,6 +356,43 @@ __device__ __forceinline__ void store_original(const uint32_t (&rows)[16], uint1
         *reinterpret_cast<uint4*>(o + Orig<uint16_t>::seg(4 * p + c) * 16) = make_uint4(
             mine ? own[k][0] : other[k][0], mine ? own[k][1] : other[k][1],
             mine ? own[k][2] : other[k][2], mine ? own[k][3] : other[k][3]);
+    }
+}
+
+// The encode's way back for a u16 thread: the pair's 16-byte loads c fill
+// the sector of lane 4p + c (the even thread loads rows 0-7, the odd one rows
+// 8-15), the half swap gives each thread all 16 rows of its own two lanes,
+// and the 2x2 transposes give the 16 row words.
+__device__ __forceinline__ void load_original(const uint16_t* in, int q, uint32_t (&rows)[16]) {
+    const bool odd = q & 1;
+    const int p = q >> 1;
+    const uint16_t* i0 = in + (odd ? 8 : 0);
+    uint32_t half[4][4];  // half[c][i]: word i of this thread's half of lane 4p+c
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+        const uint4 v = *reinterpret_cast<const uint4*>(i0 + Orig<uint16_t>::seg(4 * p + c) * 16);
+        half[c][0] = v.x;
+        half[c][1] = v.y;
+        half[c][2] = v.z;
+        half[c][3] = v.w;
+    }
+    uint32_t w[2][8];  // w[k][j]: rows 2j, 2j+1 of lane 2q+k
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            // lanes 4p, 4p+1 are the even thread's, 4p+2, 4p+3 the odd one's
+            const uint32_t own = odd ? half[2 + k][i] : half[k][i];
+            const uint32_t other =
+                __shfl_xor_sync(0xffffffffu, odd ? half[k][i] : half[2 + k][i], 1);
+            w[k][i] = odd ? other : own;
+            w[k][4 + i] = odd ? own : other;
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        rows[2 * j] = __byte_perm(w[0][j], w[1][j], 0x5410);
+        rows[2 * j + 1] = __byte_perm(w[0][j], w[1][j], 0x7632);
     }
 }
 
@@ -341,7 +435,7 @@ decode_kernel(const T* __restrict__ packed, T* __restrict__ out,
         decode_rows<T, OP>(p, width, acc, rf, store);
     } else {
         static_assert(L::PER > 1, "u32/u64 decode to original order in decode_orig_kernel");
-        StoreRows<T> rows;
+        Rows<T> rows;
         decode_rows<T, OP>(p, width, acc, rf, rows);
         store_original(rows.rows, out + b * 1024, q);
     }
@@ -383,68 +477,67 @@ decode_orig_kernel(const T* __restrict__ packed, T* __restrict__ out,
     }
 }
 
-// The loads of the encode row loop: row r of the thread's lane.
+// The loads of the encode row loop: row r of the thread's PER lanes.
 template <typename T>
-struct LoadTransposed {
-    const T* v;
-    __device__ __forceinline__ T operator()(int r) const { return v[row_offset(r)]; }
+struct LoadTransposed {  // values + b*1024 + PER*q: one row = 128 contiguous bytes a warp
+    using V = typename Lanes<T>::V;
+    const V* v;
+    __device__ __forceinline__ V operator()(int r) const { return v[row_offset(r) / Lanes<T>::PER]; }
 };
 
 template <typename T>
-struct LoadStaged {
+struct LoadStaged {  // the lane's segment in shared memory (PER = 1)
     const T* s;
     __device__ __forceinline__ T operator()(int r) const { return s[r]; }
 };
 
 // Encode: the mirror of the decode row loop (reference macros.rs:35-98). The
-// thread reads its lane's T rows, applies the hook in a register (ENC_DELTA:
+// thread reads its lanes' T rows, applies the hook in a register (ENC_DELTA:
 // d = v - prev with prev the UNMASKED previous value, seeded from the base;
 // ENC_ZDELTA: the same d, then zigzag (d << 1) ^ (d >> (T-1)) with the shift
 // arithmetic on the signed view; ENC_FOR: v - reference, wrapping), masks to
 // W bits, or's the row into the word in flight and stores the word at each
 // word boundary, keeping the bits that did not fit as the start of the next
-// word. A lane writes exactly W words (stride LANES from o), so every word of
-// the (uninitialised) output is written once.
+// word. A thread writes exactly W words (stride THREADS from o, in units of
+// V), so every word of the (uninitialised) output is written once.
 template <typename T, int OP, typename Load>
-__device__ __forceinline__ void encode_rows(Load load, T* __restrict__ o, int width,
-                                            T prev, T reference) {
-    constexpr int TBITS = sizeof(T) * 8;
-    constexpr int LANES = 1024 / TBITS;
+__device__ __forceinline__ void encode_rows(const Load& load, typename Lanes<T>::V* __restrict__ o,
+                                            int width, typename Lanes<T>::V prev,
+                                            typename Lanes<T>::V reference) {
+    using L = Lanes<T>;
+    using V = typename L::V;
+    constexpr int TBITS = L::TBITS;
     const bool copy = width == TBITS;  // W == T: rows are the words
-    const T mask = copy ? T(~T(0)) : T((T(1) << width) - T(1));
-    T tmp = T(0);   // the packed word under construction
+    const V mask = L::low_bits(width);
+    V tmp = V(0);   // the packed word under construction
     int word = 0;   // its index
     int shift = 0;  // bit position of the next row inside it, < TBITS
 
 #pragma unroll
     for (int r = 0; r < TBITS; ++r) {
-        T src = load(r);
+        V src = load(r);
         if (OP == ENC_DELTA || OP == ENC_ZDELTA) {
-            T d = T(src - prev);
+            V d = L::sub(src, prev);
             prev = src;
-            if (OP == ENC_ZDELTA) {
-                using S = typename std::make_signed<T>::type;
-                d = T(T(d << 1) ^ T(S(d) >> (TBITS - 1)));
-            }
+            if (OP == ENC_ZDELTA) d = L::zigzag(d);
             src = d;
         } else if (OP == ENC_FOR) {
-            src = T(src - reference);
+            src = L::sub(src, reference);
         }
         if (copy) {
-            o[(long long)r * LANES] = src;
+            o[(long long)r * L::THREADS] = src;
             continue;
         }
-        src = T(src & mask);
-        tmp = T(tmp | T(src << shift));
+        src = V(src & mask);
+        tmp = V(tmp | L::shift_in(src, shift));
         const int end = shift + width;
         if (end >= TBITS) {
-            o[(long long)word * LANES] = tmp;
+            o[(long long)word * L::THREADS] = tmp;
             ++word;
-            // the bits of this row that did not fit open the next word;
-            // width - remaining is in [1, W] and W < T here, so the shift is
-            // defined, and with remaining == 0 it leaves 0 (src is masked)
+            // the bits of this row that did not fit open the next word; with
+            // remaining == 0 that is none (src is masked)
             const int remaining = end - TBITS;
-            tmp = T(src >> (width - remaining));
+            tmp = L::carry(src, width, remaining);
             shift = remaining;
         } else {
             shift = end;
@@ -452,52 +545,68 @@ __device__ __forceinline__ void encode_rows(Load load, T* __restrict__ o, int wi
     }
 }
 
-template <typename T, int OP>
+// Encode with PER lanes a thread, THREADS threads a FastLanes block: every
+// op in transposed order, and for u8/u16 the original-order ops (ENC_DELTA,
+// ENC_ZDELTA), whose rows come in through load_original. In transposed order
+// `base` holds the seeds of ENC_DELTA; in original order it is an OUTPUT:
+// row 0 of each transposed block (the FLT delta-chunk base), against which
+// the deltas are taken, so delta row 0 is zero. With width == 0 only the
+// base is written. The thread reads its rows (transposed order) and its base
+// as 32-bit words (or T for u32/u64) and writes its packed words and base
+// words likewise, so all must be 4-byte aligned; the original-order loads of
+// u16 take 16 bytes, so there the values must be 16-byte aligned.
+template <typename T, int OP, int ORDER>
 __global__ void __launch_bounds__(kThreads)
 encode_kernel(const T* __restrict__ values, T* __restrict__ out,
-              const T* __restrict__ base, long long base_stride,
+              T* __restrict__ base, long long base_stride,
               const T* __restrict__ ref, long long ref_stride, T reference,
               long long n_blocks, int width) {
-    constexpr int TBITS = sizeof(T) * 8;
-    constexpr int LANES = 1024 / TBITS;
+    using L = Lanes<T>;
+    using V = typename L::V;
 
     const long long gid = (long long)blockIdx.x * kThreads + threadIdx.x;
-    const long long b = gid / LANES;
-    const int lane = (int)(gid % LANES);
-    if (b >= n_blocks) return;  // ragged last CUDA block
+    const long long b = gid / L::THREADS;
+    const int q = (int)(gid % L::THREADS);
+    if (b >= n_blocks) return;  // ragged last CUDA block: whole warps leave
 
-    T prev = T(0);
-    if (OP == ENC_DELTA) prev = base[b * base_stride + lane];
-    T rf = T(0);
-    if (OP == ENC_FOR) rf = reference_of(ref, ref_stride, reference, b);
-    encode_rows<T, OP>(LoadTransposed<T>{values + b * 1024 + lane},
-                       out + b * ((long long)LANES * width) + lane, width, prev, rf);
+    V* o = reinterpret_cast<V*>(out) + b * ((long long)L::THREADS * width) + q;
+    if constexpr (ORDER == ORDER_TRANSPOSED) {
+        V prev = V(0);
+        if (OP == ENC_DELTA)
+            prev = reinterpret_cast<const V*>(base)[b * (base_stride / L::PER) + q];
+        V rf = V(0);
+        if (OP == ENC_FOR) rf = L::rep(reference_of(ref, ref_stride, reference, b));
+        const LoadTransposed<T> load{reinterpret_cast<const V*>(values) + b * (1024 / L::PER) + q};
+        encode_rows<T, OP>(load, o, width, prev, rf);
+    } else {
+        static_assert(L::PER > 1, "u32/u64 encode from original order in encode_orig_kernel");
+        Rows<T> rows;
+        load_original(values + b * 1024, q, rows.rows);
+        reinterpret_cast<V*>(base)[b * L::THREADS + q] = rows.rows[0];
+        if (width == 0) return;
+        encode_rows<T, OP>(rows, o, width, rows.rows[0], V(0));
+    }
 }
 
-// Original-order encode (OP = ENC_DELTA or ENC_ZDELTA): the NB blocks'
-// contiguous values are loaded into the stage by consecutive threads; after
-// the barrier each (block, lane) thread reads its T rows from its segment,
-// writes row 0 to base_out[b*LANES + lane] (the FLT delta-chunk base) and
-// packs the deltas against it, so delta row 0 is zero. With width == 0 there
-// are no packed words and only the base is written.
+// Original-order encode of u32/u64 (OP = ENC_DELTA or ENC_ZDELTA) through
+// shared memory: the NB blocks' contiguous values are loaded into the stage
+// by consecutive threads; after the barrier each (block, lane) thread reads
+// its T rows from its segment, writes row 0 to base_out[b*LANES + lane] and
+// packs the deltas against it, as encode_kernel does in original order.
 template <typename T, int OP>
 __global__ void __launch_bounds__(Orig<T>::THREADS)
 encode_orig_kernel(const T* __restrict__ values, T* __restrict__ out,
                    T* __restrict__ base_out, long long n_blocks, int width) {
     using L = Orig<T>;
-    using Word = typename L::Word;
+    static_assert(Lanes<T>::PER == 1, "u8/u16 encode from original order in encode_kernel");
     __shared__ T stage[L::NB * L::BLOCK_PITCH];
 
     const long long b0 = (long long)blockIdx.x * L::NB;
     const int live = (int)(n_blocks - b0 < L::NB ? n_blocks - b0 : L::NB);
-    const Word* in = reinterpret_cast<const Word*>(values + b0 * 1024);
-    const int n_words = live * (1024 / L::PER);
-    for (int i = threadIdx.x; i < n_words; i += L::THREADS) {
-        const Word w = in[i];
-        const int e = i * L::PER;
-        T* s = stage + L::staged(e / 1024, e % 1024);
-#pragma unroll
-        for (int k = 0; k < L::PER; ++k) s[k] = T(w >> (k * L::TBITS));
+    const T* in = values + b0 * 1024;
+    const int n_values = live * 1024;
+    for (int i = threadIdx.x; i < n_values; i += L::THREADS) {
+        stage[L::staged(i / 1024, i % 1024)] = in[i];
     }
     __syncthreads();
 
@@ -534,56 +643,51 @@ unsigned grid_of(long long n_blocks, int threads_per_block, int threads_per_cta)
     return grid <= 0 || grid > 0x7fffffffLL ? 0u : (unsigned)grid;
 }
 
-template <int OP, int ORDER>
-struct Decode {
+// One launch of (direction, op, order) for dtype T: u8/u16 take both orders
+// in decode_kernel / encode_kernel, u32/u64 original order in the staged
+// kernels.
+template <bool ENCODE, int OP, int ORDER>
+struct Launch {
     template <typename T>
     static int run(const Job& j) {
         using L = Orig<T>;
-        // u8/u16 decode to original order in decode_kernel, like transposed order
         constexpr bool staged = ORDER == ORDER_ORIG && Lanes<T>::PER == 1;
         const unsigned grid = staged ? grid_of(j.n_blocks, L::LANES, L::THREADS)
                                      : grid_of(j.n_blocks, Lanes<T>::THREADS, kThreads);
         if (grid == 0) return (int)cudaErrorInvalidConfiguration;
-        if constexpr (staged) {
+        const T* src = (const T*)j.src;
+        T* out = (T*)j.out;
+        T* base = (T*)j.base;
+        if constexpr (staged && ENCODE) {
+            encode_orig_kernel<T, OP><<<grid, L::THREADS, 0, j.stream>>>(
+                src, out, base, j.n_blocks, j.width);
+        } else if constexpr (staged) {
             decode_orig_kernel<T, OP><<<grid, L::THREADS, 0, j.stream>>>(
-                (const T*)j.src, (T*)j.out, (const T*)j.base, j.base_stride, j.n_blocks,
-                j.width);
+                src, out, base, j.base_stride, j.n_blocks, j.width);
+        } else if constexpr (ENCODE) {
+            encode_kernel<T, OP, ORDER><<<grid, kThreads, 0, j.stream>>>(
+                src, out, base, j.base_stride, (const T*)j.ref, j.ref_stride, (T)j.reference,
+                j.n_blocks, j.width);
         } else {
             decode_kernel<T, OP, ORDER><<<grid, kThreads, 0, j.stream>>>(
-                (const T*)j.src, (T*)j.out, (const T*)j.base, j.base_stride,
-                (const T*)j.ref, j.ref_stride, (T)j.reference, j.n_blocks, j.width);
+                src, out, base, j.base_stride, (const T*)j.ref, j.ref_stride, (T)j.reference,
+                j.n_blocks, j.width);
         }
         return (int)cudaGetLastError();
     }
 };
-
 template <int OP, int ORDER>
-struct Encode {
-    template <typename T>
-    static int run(const Job& j) {
-        using L = Orig<T>;
-        constexpr bool staged = ORDER == ORDER_ORIG;
-        const unsigned grid = grid_of(j.n_blocks, L::LANES, staged ? L::THREADS : kThreads);
-        if (grid == 0) return (int)cudaErrorInvalidConfiguration;
-        if constexpr (staged) {
-            encode_orig_kernel<T, OP><<<grid, L::THREADS, 0, j.stream>>>(
-                (const T*)j.src, (T*)j.out, (T*)j.base, j.n_blocks, j.width);
-        } else {
-            encode_kernel<T, OP><<<grid, kThreads, 0, j.stream>>>(
-                (const T*)j.src, (T*)j.out, (const T*)j.base, j.base_stride,
-                (const T*)j.ref, j.ref_stride, (T)j.reference, j.n_blocks, j.width);
-        }
-        return (int)cudaGetLastError();
-    }
-};
+using Decode = Launch<false, OP, ORDER>;
+template <int OP, int ORDER>
+using Encode = Launch<true, OP, ORDER>;
 
-template <typename Launch>
+template <typename Run>
 int by_dtype(int tbits, const Job& j) {
     switch (tbits) {
-        case 8:  return Launch::template run<uint8_t>(j);
-        case 16: return Launch::template run<uint16_t>(j);
-        case 32: return Launch::template run<uint32_t>(j);
-        case 64: return Launch::template run<uint64_t>(j);
+        case 8:  return Run::template run<uint8_t>(j);
+        case 16: return Run::template run<uint16_t>(j);
+        case 32: return Run::template run<uint32_t>(j);
+        case 64: return Run::template run<uint64_t>(j);
     }
     return (int)cudaErrorInvalidValue;
 }
@@ -641,7 +745,9 @@ extern "C" int fl_decode(int op, int order, int tbits, const void* packed, void*
 // and base is an OUTPUT of (n_blocks, LANES) words: row 0 of each transposed
 // block, against which the deltas are taken. With width 0 only base is
 // written and out is not touched.
-// out: (n_blocks, 1024*width/tbits) words.
+// out: (n_blocks, 1024*width/tbits) words. values, out and base are 4-byte
+// aligned (u8/u16 threads access them as 32-bit words; values 16-byte aligned
+// for original order); ref may lie anywhere.
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int fl_encode(int op, int order, int tbits, const void* values, void* out,
                          void* base, long long base_stride, const void* ref,

@@ -1,16 +1,18 @@
-"""Two builds of csrc/codecs.cu, side by side on one card: the decode kernels.
+"""Two builds of csrc/codecs.cu, side by side on one card: all eleven kernels.
 
-    python -m fastlanes_tpu_torch.kernels.ab_decode BASELINE.cu [--bound-ms 0.1]
+    python -m fastlanes_tpu_torch.kernels.ab_codecs BASELINE.cu [--bound-ms 0.1]
 
 BASELINE.cu is another revision of csrc/codecs.cu with the same C interface
-(`fl_decode`). Both files are built with the same nvcc flags; what ptxas
-reports for every kernel instantiation of each is printed. Then for every
-dtype, at a size whose bytes bound is at least `--bound-ms` and W = T/4 + 2
-(per-block base and reference), each of the seven decode kernels runs
-through both libraries on the same inputs: the two outputs must be equal bit
-for bit, and each is timed with CUDA events (10 launches back to back,
-median of 10) in turns baseline, checkout, checkout, baseline. Prints one
-JSON line; exits 1 without a CUDA device or when the outputs differ.
+(`fl_decode`, `fl_encode`). Both files are built with the same nvcc flags;
+what ptxas reports for every kernel instantiation of each is printed. Then
+for every dtype, at a size whose bytes bound is at least `--bound-ms` and
+W = T/4 + 2 (per-block base and reference), each of the seven decode kernels
+and the four encode kernels (`delta_pack_orig` plain and zigzag) runs
+through both libraries on the same inputs: the two outputs (the packed words
+and, for `delta_pack_orig`, the base it writes) must be equal byte for
+byte, and each is timed with CUDA events (10 launches back to back, median
+of 10) in turns baseline, checkout, checkout, baseline. Prints one JSON
+line; exits 1 without a CUDA device or when the outputs differ.
 """
 
 from __future__ import annotations
@@ -27,11 +29,12 @@ import torch
 
 from ..core import layout
 from . import build
-from .cuda_codecs import _KERNELS
+from .cuda_codecs import _KERNELS, _ZIGZAG_ENCODE_OP
 
 HBM_BYTES_PER_S = 3.35e12  # published device-memory rate of one H100 SXM
 DECODE = ("unpack", "unfor_pack", "undelta_pack", "unzdelta_pack",
           "unpack_orig", "undelta_pack_orig", "unzdelta_pack_orig")
+ENCODE = ("pack", "delta_pack", "for_pack", "delta_pack_orig", "delta_pack_orig_zigzag")
 
 
 def time_ms(fn, reps=10, inner=10):
@@ -50,23 +53,45 @@ def time_ms(fn, reps=10, inner=10):
     return statistics.median(times)
 
 
-def launcher(lib, name, dtype, packed, base, refs, width):
-    """A callable that launches kernel `name` of `lib` into a fresh output."""
-    _, op, order = _KERNELS[name]
-    t, n_blocks = layout.bit_width(dtype), packed.shape[0]
-    base_ptr, base_stride = (base.data_ptr(), layout.lanes(dtype)) if "delta" in name \
-        else (None, 0)
-    ref_ptr, ref_stride = (refs.data_ptr(), 1) if name == "unfor_pack" else (None, 0)
+def launcher(lib, row, dtype, inputs, width):
+    """(a callable that launches kernel `row` of `lib` into fresh outputs and
+    returns them, the bytes the launch moves). `inputs` holds the packed
+    words, the values, the per-block base and the per-block references."""
+    name = row.removesuffix("_zigzag")
+    entry, op, order = _KERNELS[name]
+    if row != name:
+        op = _ZIGZAG_ENCODE_OP
+    t, nl = layout.bit_width(dtype), layout.lanes(dtype)
+    encode = entry == "fl_encode"
+    src = inputs["values" if encode else "packed"]
+    n_blocks = src.shape[0]
+    out_cols = layout.packed_len(dtype, width) if encode else layout.BLOCK
+    base_ptr, base_stride = None, 0
+    if "delta" in name and name != "delta_pack_orig":  # delta_pack_orig writes its base
+        base_ptr, base_stride = inputs["base"].data_ptr(), nl
+    ref_ptr, ref_stride = None, 0
+    if name in ("unfor_pack", "for_pack"):
+        ref_ptr, ref_stride = inputs["refs"].data_ptr(), 1
     stream = torch.cuda.current_stream().cuda_stream or None
 
     def run():
-        out = torch.empty((n_blocks, layout.BLOCK), dtype=packed.dtype, device=packed.device)
-        err = lib.fl_decode(op, order, t, packed.data_ptr(), out.data_ptr(), base_ptr,
-                            base_stride, ref_ptr, ref_stride, 0, n_blocks, width, stream)
+        outs = (torch.empty((n_blocks, out_cols), dtype=src.dtype, device=src.device),)
+        made = base_ptr
+        if name == "delta_pack_orig":
+            outs += (torch.empty((n_blocks, nl), dtype=src.dtype, device=src.device),)
+            made = outs[1].data_ptr()
+        err = getattr(lib, entry)(op, order, t, src.data_ptr(), outs[0].data_ptr(), made,
+                                  base_stride, ref_ptr, ref_stride, 0, n_blocks, width, stream)
         if err:
-            raise RuntimeError(f"{name} {dtype}: {lib.fl_error_string(err).decode()}")
-        return out
-    return run
+            raise RuntimeError(f"{row} {dtype}: {lib.fl_error_string(err).decode()}")
+        return outs
+
+    moved = src.numel() + n_blocks * out_cols
+    if "delta" in name:
+        moved += n_blocks * nl
+    elif ref_ptr is not None:
+        moved += n_blocks
+    return run, moved * t // 8
 
 
 def main(argv=None) -> int:
@@ -75,7 +100,7 @@ def main(argv=None) -> int:
     parser.add_argument("--bound-ms", type=float, default=0.1)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
-        print("ab_decode needs a CUDA device", file=sys.stderr)
+        print("ab_codecs needs a CUDA device", file=sys.stderr)
         return 1
     libs, ptxas = {}, {}
     for label, source in (("baseline", os.path.abspath(args.baseline)),
@@ -96,23 +121,22 @@ def main(argv=None) -> int:
         def draw(*shape):
             return torch.from_numpy(rng.integers(0, 1 << min(t, 63), size=shape,
                                                  dtype=np.uint64).astype(np_dt)).cuda()
-        packed = draw(1024, plen).repeat(reps, 1)
-        base, refs = draw(1024, nl).repeat(reps, 1), draw(1024).repeat(reps)
-        for name in DECODE:
-            runs = {label: launcher(lib, name, dtype, packed, base, refs, width)
-                    for label, lib in libs.items()}
+        inputs = {"packed": draw(1024, plen).repeat(reps, 1),
+                  "values": draw(1024, layout.BLOCK).repeat(reps, 1),
+                  "base": draw(1024, nl).repeat(reps, 1), "refs": draw(1024).repeat(reps)}
+        for name in DECODE + ENCODE:
+            runs, moved = {}, 0
+            for label, lib in libs.items():
+                runs[label], moved = launcher(lib, name, dtype, inputs, width)
             a, b = runs["baseline"](), runs["checkout"]()
             torch.cuda.synchronize()
-            equal = torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+            equal = all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+                        for x, y in zip(a, b))
             same &= equal
             del a, b
             ms = {label: [] for label in runs}
             for label in ("baseline", "checkout", "checkout", "baseline"):
                 ms[label].append(time_ms(runs[label]))
-            moved = (packed.numel() + reps * 1024 * 1024) * t // 8
-            moved += {"unfor_pack": refs.numel(), "undelta_pack": base.numel(),
-                      "unzdelta_pack": base.numel(), "undelta_pack_orig": base.numel(),
-                      "unzdelta_pack_orig": base.numel()}.get(name, 0) * t // 8
             bound = moved / HBM_BYTES_PER_S * 1e3
             row = {"kernel": name, "dtype": dtype, "width": width, "blocks": blocks,
                    "equal": equal, "bound_ms": bound}
@@ -120,7 +144,7 @@ def main(argv=None) -> int:
                 row[label + "_ms"] = times
                 row[label + "_share_of_bound"] = bound / statistics.mean(times)
             rows.append(row)
-        del packed, base, refs
+        del inputs
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(json.dumps({"card": smi, "ptxas": ptxas, "rows": rows, "equal": same}), flush=True)

@@ -28,17 +28,18 @@ kernels/build.py) around one decode and one encode row loop. Bound: memory
 traffic only. A launch moves B*1024*W/8 packed bytes and B*1024*T/8 value
 bytes (+ B*LANES*T/8 for a per-block base), with a few integer operations
 per value, so a kernel reaches the bound only if each warp-wide access moves
-whole sectors. The decode kernels give one thread PER = 4 / sizeof(T)
-adjacent lanes (4 for u8, 2 for u16, 1 for u32/u64): those lanes are one
-aligned 32-bit word in every word group, base row and transposed row, so the
-thread loads and stores 32-bit words and a warp moves 128 bytes per access
-for every dtype; the row loop runs lane-wise on the word (SWAR). In original
-order a u8/u16 thread turns its row words into words of consecutive values
-of one lane with a byte transpose in registers and stores them straight out;
-u32/u64, whose lane segments are 128/512 bytes, stage the block in shared
-memory and move it with consecutive threads on consecutive words, as the
-encode kernels do for every dtype (one thread per (block, lane)). Every
-source and base goes to the kernels 16-byte aligned (`_aligned`).
+whole sectors. The decode and encode kernels give one thread PER =
+4 / sizeof(T) adjacent lanes (4 for u8, 2 for u16, 1 for u32/u64): those
+lanes are one aligned 32-bit word in every word group, base row and
+transposed row, so the thread loads and stores 32-bit words and a warp moves
+128 bytes per access for every dtype; the row loops run lane-wise on the
+word (SWAR). In original order a u8/u16 thread turns its row words into
+words of consecutive values of one lane with a byte transpose in registers
+and stores them straight out (decode), or loads its lanes' consecutive
+values and turns them back into row words (encode); u32/u64, whose lane
+segments are 128/512 bytes, stage the block in shared memory and move it
+with consecutive threads on consecutive words. Every source and base goes
+to the kernels 16-byte aligned (`_aligned`).
 
 Beside each kernel stands its plain PyTorch version (`*_plain`, built from
 ops/). A wrapper takes the plain version only for a tensor that lies on the
@@ -241,8 +242,9 @@ def _prep_reference(reference, dtype, src2d):
 
 def _aligned(arr):
     """Contiguous and 16-byte aligned, as the kernels' word accesses
-    need: a u8/u16 decode thread reads its packed words and its base as
-    32-bit words, and a view into the middle of a buffer may not be."""
+    need: a u8/u16 thread reads its packed words or values and its base as
+    32-bit words (up to 16 bytes in original order), and a view into the
+    middle of a buffer may not be."""
     arr = arr.contiguous()
     return arr if arr.data_ptr() % 16 == 0 else arr.clone()
 

@@ -177,20 +177,61 @@ def test_delta_pack_orig_on_the_card(card, dt, w, zigzag):
         assert torch.equal(signed(decode(packed, base, w, dt)), signed(values))
 
 
-def test_unaligned_views_are_copied_before_the_launch(card):
-    """A (B, 1024) u8 view that starts one byte into its buffer: the
-    original-order kernels move 4-byte words, so the wrapper realigns it."""
-    raw = torch.arange(3 * 1024 + 1, dtype=torch.int32, device=card).to(torch.uint8)
-    values = raw[1:].reshape(3, 1024)
-    assert values.data_ptr() % 4 != 0
-    packed, base = ck.delta_pack_orig(values, 8, "u8")
-    want_p, want_b = ck.delta_pack_orig_plain(values, 8, "u8")
-    assert torch.equal(packed, want_p) and torch.equal(base, want_b)
-    assert torch.equal(ck.undelta_pack_orig(packed, base, 8, "u8"), values)
+def unaligned_view(arr, offset, card):
+    """`arr` on the card as a view that starts `offset` elements into its
+    buffer, so that its address is not a multiple of 4 bytes."""
+    flat = torch.from_numpy(np.ascontiguousarray(arr).reshape(-1)).to(card)
+    buf = torch.empty(flat.numel() + offset, dtype=flat.dtype, device=card)
+    buf[offset:] = flat
+    view = buf[offset:].view(arr.shape)
+    assert view.data_ptr() % 4 != 0
+    return view
 
 
-@pytest.mark.parametrize("dt,offset", [("u8", 1), ("u8", 2), ("u8", 3), ("u16", 1)],
-                         ids=["u8-1B", "u8-2B", "u8-3B", "u16-2B"])
+UNALIGNED = pytest.mark.parametrize("dt,offset", [("u8", 1), ("u8", 2), ("u8", 3), ("u16", 1)],
+                                    ids=["u8-1B", "u8-2B", "u8-3B", "u16-2B"])
+
+
+@UNALIGNED
+def test_unaligned_views_are_copied_before_the_launch(card, dt, offset):
+    """Values, a (B, LANES) or (LANES,) base and per-block references that
+    start `offset` elements (1-3 bytes) into their buffers: u8/u16 encode
+    threads read values and base as 32-bit words (in original order as 8-
+    or 16-byte loads), so the wrapper realigns them before the launch."""
+    rng = np.random.default_rng(6000 + 10 * layout.bit_width(dt) + offset)
+    t, nl, np_dt = layout.bit_width(dt), layout.lanes(dt), layout.np_dtype(dt)
+    w = t // 2 + 1
+    vals = rng.integers(0, 1 << t, size=(B, layout.BLOCK), dtype=np.uint64).astype(np_dt)
+    bases = rng.integers(0, 1 << t, size=(B, nl), dtype=np.uint64).astype(np_dt)
+    refs = rng.integers(0, 1 << t, size=B, dtype=np.uint64).astype(np_dt)
+    values, base = unaligned_view(vals, offset, card), unaligned_view(bases, offset, card)
+    shared, ref_t = unaligned_view(bases[0], offset, card), unaligned_view(refs, offset, card)
+    before = dict(ck.LAUNCHES)
+    cases = [
+        ("pack", (values,), ref.pack(vals, w, dt)),
+        ("delta_pack", (values, base), ref.delta_pack(vals, bases, w, dt)),
+        ("delta_pack", (values, shared),
+         ref.delta_pack(vals, np.broadcast_to(bases[0], bases.shape), w, dt)),
+        ("for_pack", (values, ref_t), np.stack(
+            [ref.for_pack(vals[b:b + 1], int(refs[b]), w, dt)[0] for b in range(B)])),
+    ]
+    for name, args, gold in cases:
+        got = getattr(ck, name)(*args, w, dt)
+        want = getattr(ck, name + "_plain")(*args, w, dt)
+        torch.cuda.synchronize()
+        assert torch.equal(signed(got), signed(want)), (name, tuple(args[-1].shape))
+        assert np.array_equal(got.cpu().numpy(), gold), (name, tuple(args[-1].shape))
+    packed, made = ck.delta_pack_orig(values, t, dt)
+    want_p, want_b = ck.delta_pack_orig_plain(values, t, dt)
+    assert torch.equal(signed(packed), signed(want_p)) and torch.equal(signed(made), signed(want_b))
+    assert torch.equal(signed(ck.undelta_pack_orig(packed, made, t, dt)), signed(values))
+    assert ck.LAUNCHES["pack"] == before["pack"] + 1
+    assert ck.LAUNCHES["delta_pack"] == before["delta_pack"] + 2
+    assert ck.LAUNCHES["for_pack"] == before["for_pack"] + 1
+    assert ck.LAUNCHES["delta_pack_orig"] == before["delta_pack_orig"] + 1
+
+
+@UNALIGNED
 def test_unaligned_base_and_packed_views(card, dt, offset):
     """Packed words and a (B, LANES) or (LANES,) base that start `offset`
     elements (1-3 bytes) into their buffers: u8/u16 decode threads read both
@@ -201,16 +242,8 @@ def test_unaligned_base_and_packed_views(card, dt, offset):
     words = rng.integers(0, 1 << t, size=(B, layout.packed_len(dt, w)),
                          dtype=np.uint64).astype(np_dt)
     bases = rng.integers(0, 1 << t, size=(B, nl), dtype=np.uint64).astype(np_dt)
-
-    def view_at(arr):
-        flat = torch.from_numpy(arr.reshape(-1)).to(card)
-        buf = torch.empty(flat.numel() + offset, dtype=flat.dtype, device=card)
-        buf[offset:] = flat
-        view = buf[offset:].view(arr.shape)
-        assert view.data_ptr() % 4 != 0
-        return view
-
-    packed, base, shared = view_at(words), view_at(bases), view_at(bases[0])
+    packed, base = unaligned_view(words, offset, card), unaligned_view(bases, offset, card)
+    shared = unaligned_view(bases[0], offset, card)
     before = dict(ck.LAUNCHES)
     for name, seeds, gold_base in (("undelta_pack", base, bases),
                                    ("undelta_pack_orig", base, bases),
@@ -227,6 +260,26 @@ def test_unaligned_base_and_packed_views(card, dt, offset):
         assert np.array_equal(got.cpu().numpy(), gold), (name, tuple(seeds.shape))
     assert ck.LAUNCHES["undelta_pack"] == before["undelta_pack"] + 2
     assert ck.LAUNCHES["undelta_pack_orig"] == before["undelta_pack_orig"] + 2
+
+
+@pytest.mark.parametrize("w", [3, 5, 7])
+def test_u8_pack_straddling_rows(card, w):
+    """u8 pack at B ragged blocks and widths whose rows straddle two packed
+    words (shift + W > 8), with every value bit set somewhere: a row's bits
+    above W, or above what fits in the word in flight, must not reach the
+    lane above in the thread's 32-bit word."""
+    rng = np.random.default_rng(7000 + w)
+    vals = rng.integers(0, 256, size=(B, layout.BLOCK), dtype=np.uint8)
+    vals[0] = 255
+    values = torch.from_numpy(vals).to(card)
+    before = ck.LAUNCHES["pack"]
+    got = ck.pack(values, w, "u8")
+    want = ck.pack_plain(values, w, "u8")
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["pack"] == before + 1
+    assert torch.equal(got, want)
+    assert np.array_equal(got.cpu().numpy(), ref.pack(vals, w, "u8"))
+    assert np.array_equal(ck.unpack(got, w, "u8").cpu().numpy(), vals & np.uint8((1 << w) - 1))
 
 
 def test_public_names_launch_the_kernels(card):

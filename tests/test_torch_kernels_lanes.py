@@ -56,6 +56,20 @@ class Lanes:
         return (v & self.low_bits(t - shift)) | (
             (nxt & self.low_bits(remaining)) << U32(t - shift))
 
+    # the encode's helpers
+    def sub(self, a, b):
+        return ((a | self.high) - (b & ~self.high)) ^ ((a ^ ~b) & self.high)
+
+    def zigzag(self, d):
+        return ((d << U32(1)) & ~self.ones) ^ (
+            ((d >> U32(self.tbits - 1)) & self.ones) * self.lane_max)
+
+    def shift_in(self, src, shift):
+        return (src & self.low_bits(self.tbits - shift)) << U32(shift)
+
+    def carry(self, src, width, remaining):
+        return (src >> U32(width - remaining)) & self.low_bits(remaining)
+
 
 def decode_rows(lanes, p, width, acc, reference, op):
     """decode_rows of codecs.cu over every thread at once: p is (B, W, 32),
