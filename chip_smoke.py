@@ -29,10 +29,17 @@ eight operators on an integer, a float, a date and a string column) and
 `scan_where` held against NumPy oracles written here, with the launches
 counted: natural-order kernels on the sorted columns, original-order kernels
 only under a validity bitmap or a padded tail, none for a probe the zone maps
-resolve. Last it times each kernel at the largest shape its path gave it,
+resolve. The aggregations follow, on that table and on a second one of
+2^24 + 333 rows (a 1000-group store key, a Zipf-skewed 65536-group sku key,
+a nullable region key): `scan_where_multi`, `group_stats` (string and
+integer keys, float, 64-bit and string values, WHERE, a two-file dataset),
+`value_counts`, `top_k`, `distinct`, `quantile` and `median`, each equal to
+a NumPy oracle written here with the launches and host fetches of every call
+counted. Last it times each kernel at the largest shape its path gave it,
 beside its bound, its plain version and a device copy, all eleven kernels
-of every dtype at a size whose bytes bound is at least 0.1 ms, and
-each read, encode and scan end to end. On every driven path, each (kernel,
+of every dtype at a size whose bytes bound is at least 0.1 ms, the group
+accumulator with and without its spread copies, and each read, encode, scan
+and aggregation end to end. On every driven path, each (kernel,
 dtype) pair is held against its plain version on the tensors of its largest
 launch there, and the `kernels` line counts the launches by dtype.
 
@@ -1272,6 +1279,210 @@ def phase_scan(read_paths: dict, read_columns: dict, table: dict, files: dict,
     return {"launches": launches, "by_dtype": by_dtype}
 
 
+# -- the aggregations: a second table, and their NumPy oracle ---------------
+
+
+def group_table_columns(rng, scale: int) -> dict:
+    """The group table of the `aggregate` phase: 2^24 + 333 rows (ragged), a
+    store key with 1000 groups, a Zipf-skewed sku key with 65536, a nullable
+    region key with 8, and the values a GROUP BY has to keep exact."""
+    n = (1 << 24) // scale + 333
+    store = rng.integers(0, 1000, n).astype(np.uint16)
+    sku = ((rng.zipf(1.2, n) - 1) % 65536).astype(np.uint32)  # Zipf, folded
+    sku[0] = 65535  # the key range is [0, 65536): 65536 groups
+    price = np.round(rng.uniform(0, 100_000, n), 2)
+    # about 100 special values in a handful of stores
+    at = {s: np.flatnonzero(store == s) for s in (3, 5, 8, 11)}
+    price[at[3][:10]] = np.nan
+    price[at[5][:10]] = np.inf
+    price[at[5][10:20]] = -np.inf
+    price[at[8][:30]] = -np.inf
+    price[at[11][:50]] = -0.0
+    return {
+        "store": store,
+        "sku": sku,
+        # in [-2^50, 2^50) and mostly positive: the big skus' totals pass 2^63
+        "amount": rng.integers(-(1 << 48), 1 << 50, n, dtype=np.int64),
+        "price": price,
+        "units": rng.integers(0, 200, n).astype(np.uint8),
+        "region": np.ma.MaskedArray(rng.integers(0, 8, n).astype(np.uint16),
+                                    mask=rng.random(n) < 0.05),
+    }
+
+
+def float_group_stats(vals: np.ndarray) -> dict:
+    """A float group as group_stats defines it: the exactly rounded sum
+    (math.fsum; +0.0 when it is zero), NaN where the group holds a NaN or
+    both infinities, extremes in IEEE total order (-0.0 below +0.0)."""
+    bits = np.ascontiguousarray(vals).view(np.int64 if vals.dtype == np.float64 else np.int32)
+    top = np.iinfo(bits.dtype).max
+    key = bits ^ ((bits >> (bits.dtype.itemsize * 8 - 1)) & top)
+    if np.isnan(vals).any():
+        return {"sum": float("nan"), "min": float("nan"), "max": float("nan"),
+                "count": int(vals.size)}
+    pos, neg = np.isposinf(vals).any(), np.isneginf(vals).any()
+    total = float("nan") if pos and neg else float("inf") if pos else \
+        float("-inf") if neg else math.fsum(vals.tolist()) + 0.0
+    return {"sum": total, "min": float(vals[np.argmin(key)]),
+            "max": float(vals[np.argmax(key)]), "count": int(vals.size)}
+
+
+class GroupOracle:
+    """group_stats from numpy over the rows `ok` keeps whose key and value
+    are not null, ascending by group; one sort of the key per instance."""
+
+    def __init__(self, keys, ok=None, labels=None):
+        keep = ~np.ma.getmaskarray(keys)
+        if ok is not None:
+            keep &= ok
+        self.keys = np.ma.getdata(keys).astype(np.int64)
+        rows = np.flatnonzero(keep)
+        self.rows = rows[np.argsort(self.keys[rows], kind="stable")]
+        self.labels = labels
+
+    def stats(self, values, words=None) -> dict:
+        """`words`: the sorted dictionary of a string value column."""
+        rows = self.rows[~np.ma.getmaskarray(values)[self.rows]]
+        keys, vals = self.keys[rows], np.ma.getdata(values)[rows]
+        groups, starts = np.unique(keys, return_index=True)
+        spans = zip(groups.tolist(), starts.tolist(), np.append(starts[1:], keys.size).tolist())
+        out = {}
+        if vals.dtype.kind == "f":
+            out = {g: float_group_stats(vals[a:b]) for g, a, b in spans}
+        elif vals.dtype.kind == "U":  # lexicographic order is the sorted words' order
+            codes = np.searchsorted(words, vals)
+            ends = zip(np.minimum.reduceat(codes, starts).tolist(),
+                       np.maximum.reduceat(codes, starts).tolist())
+            out = {g: {"sum": None, "min": str(words[mn]), "max": str(words[mx]),
+                       "count": b - a, "n_dict": words.size}
+                   for (g, a, b), (mn, mx) in zip(spans, ends)}
+        else:
+            v = vals.view(np.int64) if vals.dtype.itemsize == 8 else vals.astype(np.int64)
+            sums = zip(np.add.reduceat(v & 0xFFFFFFFF, starts).tolist(),
+                       np.add.reduceat(v >> 32, starts).tolist(),
+                       np.minimum.reduceat(v, starts).tolist(),
+                       np.maximum.reduceat(v, starts).tolist())
+            out = {g: {"sum": (hi << 32) + lo, "min": mn, "max": mx, "count": b - a}
+                   for (g, a, b), (lo, hi, mn, mx) in zip(spans, sums)}
+        if self.labels is not None:
+            out = {str(self.labels[g]): st for g, st in out.items()}
+        return out
+
+
+def lower_quantile(values, q):
+    vals = np.ma.getdata(values)[~np.ma.getmaskarray(values)]
+    if vals.dtype.itemsize == 8 and vals.dtype.kind in "iu":
+        vals = vals.view(np.int64)
+    return np.partition(vals, int(np.floor(q * (vals.size - 1))))[
+        int(np.floor(q * (vals.size - 1)))].item()
+
+
+def phase_aggregate(table: dict, tmp: str, scale: int, device=None) -> dict:
+    """The aggregations on the `table` phase's table and on a second one of
+    2^24 + 333 rows: scan_where_multi, group_stats (few, 1000 and 65536
+    groups; float, 64-bit and string values; null keys; WHERE; a two-file
+    dataset), value_counts, top_k, distinct, quantile and median, each
+    answer equal to a NumPy oracle with the launches and host fetches of
+    every call counted."""
+    device = eng.resolve_device(device)
+    tpath, tcols = table["path"], table["columns"]
+    gcols = group_table_columns(np.random.default_rng(SEED + 7), scale)
+    gpath = os.path.join(tmp, "groups.flt")
+    t0 = time.perf_counter()
+    fio_table.write_table(gpath, gcols)
+    half = len(gcols["store"]) // 2
+    halves = [os.path.join(tmp, f"groups_{i}.flt") for i in range(2)]
+    for path, rows in zip(halves, (slice(0, half), slice(half, None))):
+        fio_table.write_table(path, {"store": gcols["store"][rows], "price": gcols["price"][rows]})
+    write_seconds = time.perf_counter() - t0
+    ck.reset_launches()
+    calls = {}
+
+    def check(label, fn, want, same=same_stats):
+        got, counts = counted(fn)
+        if not same(got, want) or (isinstance(want, dict) and list(got) != list(want)):
+            raise AssertionError(f"{label}: {got!r} differs from the oracle {want!r}"[:2000])
+        calls[label] = counts
+        return got
+
+    # WHERE a AND b AND c, and a WHERE the zone maps prune to one window
+    preds = [("cur", "eq", "EUR"), ("qty", "ge", 1_000_000_500),
+             ("day", "ge", np.datetime64("2020-01-01"))]
+    ok = np.logical_and.reduce([oracle_mask(tcols[c], op, v) for c, op, v in preds])
+    check("scan_where_multi[3 preds]", lambda: analytics.scan_where_multi(
+        tpath, preds, column="price", device=device), oracle_stats(tcols["price"][ok]))
+    late = int(tcols["key"][-(1 << 20) // scale])
+    pruned = [("key", "ge", late), ("qty", "lt", 1_000_000_100)]
+    ok = (tcols["key"] >= late) & (tcols["qty"] < 1_000_000_100)
+    check("scan_where_multi[pruned]", lambda: analytics.scan_where_multi(
+        tpath, pruned, column="ratio", device=device), oracle_stats(tcols["ratio"][ok]))
+
+    # GROUP BY a string key, with and without WHERE
+    codes = np.searchsorted(TABLE_WORDS, tcols["cur"])
+    by_cur = GroupOracle(codes, labels=TABLE_WORDS)
+    gpreds = [("qty", "ge", 1_000_000_500), ("day", "ge", np.datetime64("2020-01-01"))]
+    gok = np.logical_and.reduce([oracle_mask(tcols[c], op, v) for c, op, v in gpreds])
+    by_cur_where = GroupOracle(codes, ok=gok, labels=TABLE_WORDS)
+    for value in ("price", "qty", "ratio", "visits", "cur"):
+        check(f"group_stats[cur->{value}]", lambda: analytics.group_stats(
+            tpath, "cur", value, device=device), by_cur.stats(tcols[value], TABLE_WORDS))
+        check(f"group_stats[cur->{value} where]", lambda: analytics.group_stats(
+            tpath, "cur", value, device=device, preds=gpreds),
+            by_cur_where.stats(tcols[value], TABLE_WORDS))
+    # 1000 float groups, 65536 integer groups of 64-bit values, null keys,
+    # and the group table as a two-file dataset
+    by_store = GroupOracle(gcols["store"])
+    want = by_store.stats(gcols["price"])
+    check("group_stats[store->price]", lambda: analytics.group_stats(
+        gpath, "store", "price", device=device), want)
+    check("group_stats[store->price, 2 files]", lambda: analytics.group_stats(
+        halves, "store", "price", device=device), want)
+    got = check("group_stats[sku->amount]", lambda: analytics.group_stats(
+        gpath, "sku", "amount", device=device), GroupOracle(gcols["sku"]).stats(gcols["amount"]))
+    if scale == 1 and max(s["sum"] for s in got.values()) < 1 << 63:
+        raise AssertionError("no sku total passes 2^63: the int64 case is not driven")
+    check("group_stats[region->units]", lambda: analytics.group_stats(
+        gpath, "region", "units", device=device),
+        GroupOracle(gcols["region"]).stats(gcols["units"]))
+
+    # value_counts, top_k, distinct
+    for path, cols, name in ((tpath, tcols, "cur"), (gpath, gcols, "units"),
+                             (tpath, tcols, "change")):
+        u, c = np.unique(cols[name], return_counts=True)
+        check(f"value_counts[{name}]", lambda: analytics.value_counts(
+            path, name, device=device), dict(zip(u.tolist(), c.tolist())))
+    for name, k in (("price", 100), ("key", 100), ("ratio", 100)):
+        ordered = np.sort(tcols[name])
+        for largest in (True, False):
+            want = (ordered[::-1] if largest else ordered)[:k]
+            check(f"top_k[{name}{'' if largest else ', smallest'}]", lambda: analytics.top_k(
+                tpath, name, k=k, largest=largest, device=device),
+                [float(v) if want.dtype.kind == "f" else int(v) for v in want])
+    for name in ("cur", "change", "day"):
+        want = np.unique(tcols[name])
+        check(f"distinct[{name}]", lambda: analytics.distinct(tpath, name), want,
+              same=lambda a, b: a.dtype.kind == b.dtype.kind and np.array_equal(a, b))
+
+    # exact quantiles: the counting pass, the f64 search, the 64-bit search
+    qs = [0.01, 0.5, 0.99]
+    check("quantile[qty]", lambda: analytics.quantile(tpath, "qty", qs, device=device),
+          [lower_quantile(tcols["qty"], q) for q in qs])
+    check("median[price]", lambda: analytics.median(tpath, "price", device=device),
+          lower_quantile(tcols["price"], 0.5))
+    check("quantile[amount 0.9]", lambda: analytics.quantile(
+        gpath, "amount", 0.9, device=device), lower_quantile(gcols["amount"], 0.9))
+
+    launches, by_dtype = launch_counts()
+    emit({"phase": "aggregate", "tolerance": 0, "oracle": "numpy in this script: Python-int "
+          "sums, math.fsum per group, IEEE total order for float extremes, numpy's "
+          "method='lower' for quantiles", "rows": {"table": len(tcols["key"]),
+                                                  "groups": len(gcols["store"])},
+          "group_file_bytes": os.path.getsize(gpath), "write_seconds": write_seconds,
+          "calls": calls, "launches": launches, "launches_by_dtype": by_dtype})
+    return {"path": gpath, "halves": halves, "columns": gcols, "launches": launches,
+            "by_dtype": by_dtype}
+
+
 # ---------------------------------------------------------------------------
 # timing
 
@@ -1558,8 +1769,38 @@ def host_encode_costs(dev: dict) -> dict:
     return out
 
 
+def group_accumulator_rows(table_path: str, group_path: str) -> list:
+    """The device time of one group_stats accumulation (`_GroupAcc.feed`)
+    over a whole decoded column pair, with the copies the accumulator
+    chooses for its group count and with one copy: what the spread buys
+    where few groups put the atomic adds on few addresses."""
+    rows = []
+    device = torch.device("cuda")
+    for path, key, value in ((table_path, "cur", "price"), (group_path, "store", "price"),
+                             (group_path, "sku", "amount")):
+        (kb, kdt, kvt, valid, _), = analytics._decoded_chunks(path, key, device, window=1 << 20)
+        (vb, vdt, vvt, _, _), = analytics._decoded_chunks(path, value, device, window=1 << 20)
+        flat_k = analytics._flatten_logical(kb, kdt, kvt)
+        flat_v = analytics._flatten_logical(vb, vdt, vvt)
+        k = int((flat_k.key[:valid].to(torch.int64) + flat_k.offset).max()) + 1
+        row = {"path": f"{key}->{value}", "groups": k, "rows": valid}
+        for label, cap in (("chosen", analytics._SPREAD), ("one_copy", 1)):
+            real, analytics._SPREAD = analytics._SPREAD, cap
+            try:
+                acc = analytics._GroupAcc(k, flat_v, device)
+            finally:
+                analytics._SPREAD = real
+            row[label] = {"spread": acc.spread, "feed_ms": time_cuda(
+                lambda: acc.feed(flat_k, flat_v, valid, None), 5)}
+            del acc
+        rows.append(row)
+        del kb, vb, flat_k, flat_v
+    return rows
+
+
 def phase_timing(paths: dict, read_launches: dict, encode_state: dict,
-                 transposed_state: dict, worst: dict, smi: str, entries: dict) -> list:
+                 transposed_state: dict, worst: dict, smi: str, entries: dict,
+                 accumulator: list) -> list:
     timed_columns = ["headline_u32_w3", "ffor_u32", "delta_u32", "zdelta_u32"]
     with largest_launches() as seen:
         for column in timed_columns:
@@ -1606,7 +1847,9 @@ def phase_timing(paths: dict, read_launches: dict, encode_state: dict,
         encodes[column] = wall_and_busy(encode, 1 if column in ("rle_u32", "dict_u32") else 3)
         encodes[column].update(values=values.numel(), how=how)
     emit({"phase": "timing", "card": smi, "reads": reads, "encodes": encodes,
-          "entries": {label: timed_entry(fn) for label, fn in entries.items()},
+          "entries": {label: timed_entry(fn, 1 if label.startswith("median") else 3)
+                      for label, fn in entries.items()},
+          "group_accumulator": accumulator,
           "host_round_trips": host_encode_costs(dev),
           "orig_kernels_by_dtype": dtype_rows(np.random.default_rng(SEED + 2)),
           "kernels_by_dtype_at_0.1ms_bound": dtype_rows_at_bound(
@@ -1614,10 +1857,11 @@ def phase_timing(paths: dict, read_launches: dict, encode_state: dict,
     return rows
 
 
-def slice_entries(alp_state, table, files, read_paths) -> dict:
+def slice_entries(alp_state, table, files, read_paths, groups) -> dict:
     """label -> callable (ending in a synchronise) of every entry of the float,
-    table, multi-file and scan paths that the timing phase measures."""
-    tpath = table["path"]
+    table, multi-file, scan and aggregate paths that the timing phase
+    measures."""
+    tpath, gpath = table["path"], groups["path"]
     all_files = files["shards"] + files["others"]
 
     def synced(fn):
@@ -1661,6 +1905,19 @@ def slice_entries(alp_state, table, files, read_paths) -> dict:
             tpath, "eq", "EUR", column="price", where="cur")),
         "scan_where[key where qty ge]": synced(lambda: analytics.scan_where(
             tpath, "ge", 1_000_000_900, column="key", where="qty")),
+        "group_stats[cur->price]": synced(
+            lambda: analytics.group_stats(tpath, "cur", "price")),
+        "group_stats[store->price]": synced(
+            lambda: analytics.group_stats(gpath, "store", "price")),
+        "group_stats[sku->amount]": synced(
+            lambda: analytics.group_stats(gpath, "sku", "amount")),
+        "scan_where_multi[3 preds]": synced(lambda: analytics.scan_where_multi(
+            tpath, [("cur", "eq", "EUR"), ("qty", "ge", 1_000_000_500),
+                    ("day", "ge", np.datetime64("2020-01-01"))], column="price")),
+        "value_counts[cur]": synced(lambda: analytics.value_counts(tpath, "cur")),
+        "value_counts[units]": synced(lambda: analytics.value_counts(gpath, "units")),
+        "top_k[price]": synced(lambda: analytics.top_k(tpath, "price", k=100)),
+        "median[price]": synced(lambda: analytics.median(tpath, "price")),
     })
     return entries
 
@@ -1710,12 +1967,16 @@ def main() -> int:
         drive("scan", lambda: phase_scan(read_state["paths"], columns, table, files),
               ("unpack", "unfor_pack", "undelta_pack", "unzdelta_pack",
                "undelta_pack_orig"))
+        groups = drive("aggregate", lambda: phase_aggregate(table, tmp, 1),
+                       ("unpack", "unfor_pack", "undelta_pack", "undelta_pack_orig"))
         del columns
         files.pop("shard_values")
-        entries = slice_entries(alp_state, table, files, read_state["paths"])
+        entries = slice_entries(alp_state, table, files, read_state["paths"], groups)
         table.pop("columns")
+        groups.pop("columns")
+        accumulator = group_accumulator_rows(table["path"], groups["path"])
         rows = phase_timing(read_state["paths"], read_state["launches"], encode_state,
-                            transposed_state, worst, info["nvidia_smi"], entries)
+                            transposed_state, worst, info["nvidia_smi"], entries, accumulator)
         if [row["name"] for row in rows] != list(KERNELS):
             raise AssertionError(f"kernel rows: {[row['name'] for row in rows]}")
     for row in rows:

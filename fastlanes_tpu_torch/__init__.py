@@ -4,8 +4,8 @@ The FastLanes compression layout (Afroozeh & Boncz, VLDB 2023) over
 1024-value blocks of u8/u16/u32/u64 on an NVIDIA Hopper GPU: the FLT file
 format on the host (single columns and tables), device-side column reads
 (one file, many files, table columns; integer, string and float columns),
-device-side column encode through the codec classes, and scans that consume
-a device read, with the encode and decode kernels hand-written in CUDA. Imports torch and numpy, never jax, and nothing of the JAX package.
+device-side column encode through the codec classes, and scans and
+aggregations that consume a device read, with the encode and decode kernels hand-written in CUDA. Imports torch and numpy, never jax, and nothing of the JAX package.
 
 Device rule: every entry that touches the device takes `device=None`, which
 means the GPU and raises RuntimeError when there is none; the CPU is used
@@ -22,8 +22,9 @@ Layer map (same module names as fastlanes_tpu):
   fio        FLT file format, host writer and reader
   fio_table  FLT table container (named columns, strings, nulls), host side
   fio_device device-side FLT reads
-  analytics  scans over compressed columns (scan_column, scan_table,
-             count_where, scan_where)
+  analytics  scans and aggregations over compressed columns (scan_column,
+             scan_table, count_where, scan_where, scan_where_multi,
+             group_stats, distinct, value_counts, top_k, quantile, median)
   convert    array forms of the JAX package <-> tensors of the port
 """
 
@@ -44,7 +45,8 @@ __all__ = [
     "write_table", "read_table", "read_column", "TableWriter", "StringColumn",
     "read_files_device", "iter_files_device", "read_column_device",
     "scan_column", "scan_table", "count_where", "scan_where",
-    "from_reference", "to_reference", "__version__",
+    "scan_where_multi", "group_stats", "distinct", "value_counts", "top_k",
+    "quantile", "median", "from_reference", "to_reference", "__version__",
 ]
 
 
@@ -69,8 +71,10 @@ _API_HOME = {
                                  "iter_files_device", "read_column_device")},
     **{n: "fio_table" for n in ("write_table", "read_table", "read_column",
                                 "TableWriter", "StringColumn")},
-    **{n: "analytics" for n in ("scan_column", "scan_table", "count_where",
-                                "scan_where")},
+    **{n: "analytics" for n in (
+        "scan_column", "scan_table", "count_where", "scan_where",
+        "scan_where_multi", "group_stats", "distinct", "value_counts", "top_k",
+        "quantile", "median")},
     **{n: "convert" for n in ("from_reference", "to_reference")},
 }
 

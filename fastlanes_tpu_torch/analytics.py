@@ -1,14 +1,14 @@
-"""Scans over compressed FLT columns: decode into the consumer on the GPU.
+"""Scans and aggregations over compressed FLT columns: decode into the
+consumer on the GPU.
 
 The FastLanes layout exists so decoders feed their consumers (reference
-macros.rs:5-9). This module is the first consumer of a device read in the
-port: reductions and filtered counts over an FLT file or a table column,
-decoded by the CUDA kernels (kernels/cuda_codecs.py) run by run and reduced
-with plain torch, with only a handful of scalars per run leaving the card.
-It is the port of the scans of fastlanes_tpu/analytics.py (`scan_column`,
-`scan_table`, `count_where`, `scan_where`); the rest of that module
-(scan_where_multi, group_stats, select, join, quantile, distinct,
-value_counts, top_k) is not ported yet and its names are absent here.
+macros.rs:5-9). This module is the consumer of a device read in the port:
+reductions, filtered counts, GROUP BY, top-k and exact quantiles over an FLT
+file or a table column, decoded by the CUDA kernels (kernels/cuda_codecs.py)
+run by run and reduced with plain torch, with only a handful of numbers per
+run or per call leaving the card. It is the port of fastlanes_tpu/analytics.py
+except `select` and `join`, which are not ported yet and whose names are
+absent here.
 
     from fastlanes_tpu_torch import analytics
     stats = analytics.scan_column("col.flt")             # sum/min/max/count
@@ -17,9 +17,17 @@ value_counts, top_k) is not ported yet and its names are absent here.
     all_cols = analytics.scan_table("table.flt")         # one file pass
     hot = analytics.scan_where("table.flt", "gt", 50,    # filtered agg
                                column="price", where="qty")
+    hot = analytics.scan_where_multi(                    # WHERE a AND b
+        "table.flt", [("qty", "gt", 50), ("cur", "eq", "EUR")], column="price")
+    per_key = analytics.group_stats("table.flt", "k", "price")  # GROUP BY
+    counts = analytics.value_counts("table.flt", "cur")  # {value: count}
+    best = analytics.top_k("table.flt", "price", k=10)   # ORDER BY .. LIMIT
+    values = analytics.distinct("table.flt", "cur")      # host only
+    p99 = analytics.quantile("table.flt", "price", 0.99) # exact
 
-Every entry takes `device=None`: the GPU, RuntimeError without one;
-`device="cpu"` runs the plain versions of the kernels on the host.
+Every entry that touches the device takes `device=None`: the GPU,
+RuntimeError without one; `device="cpu"` runs the plain versions of the
+kernels on the host.
 
 Results are the Python scalars the JAX package returns, equal and not merely
 close. Where that package works in uint32 limb planes because its chip has
@@ -44,7 +52,9 @@ no 64-bit integers, this one uses int64 wherever the answer is identical:
                  and subnormals are not flushed.
 
 `HOST_FETCHES` counts the device-to-host fetches (each one a
-synchronisation): one per decoded run in a scan, one per run in a count.
+synchronisation): one per decoded run in a scan, a count or a top-k, one per
+lockstep window in scan_where_multi, one per call in group_stats and
+value_counts.
 """
 
 from __future__ import annotations
@@ -78,9 +88,14 @@ HOST_FETCHES = 0
 
 def _fetch(tensor: torch.Tensor) -> list:
     """A small integer tensor -> Python ints: ONE copy to the host."""
+    return _fetch_np(tensor).tolist()
+
+
+def _fetch_np(tensor: torch.Tensor) -> np.ndarray:
+    """An integer tensor -> a numpy array: ONE copy to the host."""
     global HOST_FETCHES
     HOST_FETCHES += 1
-    return tensor.cpu().tolist()
+    return tensor.cpu().numpy()
 
 
 def _column_layout(path: str, column: Optional[str]):
@@ -533,14 +548,12 @@ def _stats_core_float(bits, ok, kind):
 def _float_bins_to_int(bins, kind) -> int:
     """Fetched bins -> signed big-int numerator (units of 2^-1075 / 2^-150)."""
     _dt, _e, _f, planes, buckets, _d = _FLOAT_SPEC[kind]
+    bins = np.asarray(bins, dtype=np.int64)
     num = 0
-    half = buckets * planes
-    for s, sgn in ((0, 1), (1, -1)):
-        for j in range(half):
-            c = bins[s * half + j]
-            if c:
-                b, k = divmod(j, planes)
-                num += sgn * (c << (8 * b + 32 * k))
+    for j in np.flatnonzero(bins).tolist():
+        s, r = divmod(j, buckets * planes)
+        b, k = divmod(r, planes)
+        num += (1 - 2 * s) * (int(bins[j]) << (8 * b + 32 * k))
     return num
 
 
@@ -665,7 +678,13 @@ def _count_masked(mask, valid: int) -> int:
 
 
 def _merge_extreme(cur, new, op):
+    """NaN-sticky merge of two extremes (Python's min/max with a NaN depend
+    on the argument order; numpy's semantics propagate it)."""
     if cur is None:
+        return new
+    if isinstance(cur, float) and math.isnan(cur):
+        return cur
+    if isinstance(new, float) and math.isnan(new):
         return new
     return op(cur, new)
 
@@ -922,28 +941,770 @@ def _scan_where_into(acc, path, op, value, column, where, device, window):
     # cross-column predicate: walk both chunk streams in lockstep (both
     # sides share the zone-map keep so the walks stay aligned)
     keep = _zone_keep(path, [(where, op, value)], names=(column, where))
-    vals = _decoded_chunks(path, column, device, window=window, keep=keep)
-    preds = _decoded_chunks(path, where, device, window=window, keep=keep)
-    for (vb, vdt, vvt, v_valid, v_mask), (wb, wdt, wvt, w_valid, w_mask) in \
-            zip(vals, preds):
-        flat_v = _flatten_logical(vb, vdt, vvt)
-        flat_w = _flatten_logical(wb, wdt, wvt)
-        n_v, n_w = len(flat_v), len(flat_w)
-        if n_v != n_w or v_valid != w_valid:
-            raise ValueError(
-                f"columns {column!r} and {where!r} have mismatched chunk "
-                f"layouts ({n_v}/{v_valid} vs {n_w}/{w_valid} values); "
-                "cross-column scan_where needs equal length and chunking")
+    for rows in _lockstep_chunks(path, (column, where), device, keep=keep,
+                                 window=window):
+        vb, vdt, vvt, v_valid, v_mask = rows[column]
         if v_valid == 0:
             continue
-        pred = _pred_mask(flat_w, op, value)
-        if w_mask is not None:  # null predicate rows match nothing
-            pred = pred & w_mask
+        pred = _chunk_row_mask(rows, [(where, op, value)])
         if v_mask is not None:  # null values don't aggregate (SQL SUM(col))
             pred = pred & v_mask
-        acc.feed_flat(flat_v, v_valid, pred)
-    # unequal chunk counts (zip stops early) count as mismatched layouts
-    if next(vals, None) is not None or next(preds, None) is not None:
-        raise ValueError(
-            f"columns {column!r} and {where!r} have different chunk counts; "
-            "cross-column scan_where needs equal length and chunking")
+        acc.feed_flat(_flatten_logical(vb, vdt, vvt), v_valid, pred)
+
+
+# ---------------------------------------------------------------------------
+# multi-predicate filtering: several ANDed (column, op, value) predicates
+# evaluated in lockstep over the chunk streams, the WHERE clause of a
+# SQL-ish query. scan_where_multi and group_stats walk through here.
+
+
+def _lockstep_chunks(path: str, names, device, keep=None,
+                     window: int = _LOCKSTEP_WINDOW):
+    """Walk several columns' chunk streams in lockstep, `window` chunks per
+    part, so parts align row for row. Yields {name: (blocks, cdtype, vtype,
+    valid, vmask)} per window; raises ValueError on mismatched layouts.
+    `keep` (zone-map chunk flags) is shared: every column skips the same
+    windows, so alignment survives."""
+    iters = {n: _decoded_chunks(path, n, device, window=window, keep=keep)
+             for n in names}
+    while True:
+        rows = {n: next(it, None) for n, it in iters.items()}
+        done = sum(r is None for r in rows.values())
+        if done:
+            if done != len(iters):
+                raise ValueError(
+                    f"columns {sorted(names, key=str)} have different chunk "
+                    "counts; lockstep scans need equal length and chunking")
+            return
+        if len({(r[0].numel(), r[3]) for r in rows.values()}) != 1:
+            raise ValueError(
+                f"columns {sorted(names, key=str)} have mismatched chunk "
+                "layouts; lockstep scans need equal length and chunking")
+        yield rows
+
+
+def _normalize_preds(path: str, preds):
+    """[(column, op, value)] -> the same with ops validated, string probes
+    translated to THIS file's dictionary codes and temporal probes to
+    epochs."""
+    out = []
+    for pcol, op, value in preds:
+        if op not in _ALL_OPS:
+            raise ValueError(
+                f"unknown predicate {op!r}; have {sorted(_ALL_OPS)}")
+        wdict = _str_dict_of(path, pcol)
+        if wdict is not None:
+            op, value = _str_pred_to_code(wdict, op, value)
+        else:
+            value = _probe_epoch(path, pcol, value)
+        out.append((pcol, op, value))
+    return out
+
+
+def _chunk_row_mask(rows, preds):
+    """AND of every predicate's hit mask over one lockstep window (None
+    without predicates); null predicate rows match nothing."""
+    mask = None
+    for pcol, op, value in preds:
+        blocks, cdtype, vtype, _valid, vmask = rows[pcol]
+        m = _pred_mask(_flatten_logical(blocks, cdtype, vtype), op, value)
+        if vmask is not None:
+            m = m & vmask
+        mask = m if mask is None else mask & m
+    return mask
+
+
+def scan_where_multi(path, preds, column: Optional[str] = None,
+                     device=None) -> dict:
+    """Filtered aggregation with several ANDed predicates, the WHERE clause
+    `p1 AND p2 AND ...` pushed down in one pass: each predicate is (column,
+    op, value) (string probes compare as dictionary codes; null rows never
+    match), and sum/min/max/count aggregate `column` over the surviving
+    rows with the scans' exactness. Chunks a predicate's zone map rules out
+    are not decoded. One host fetch per lockstep window."""
+    device = eng.resolve_device(device)
+    paths = _paths(path)
+    vdict0 = _str_dict_of(paths[0], column)
+    if len(paths) > 1 and vdict0 is not None:
+        return _merge_str_stats([scan_where_multi(p, preds, column, device)
+                                 for p in paths])
+    raw_preds = list(preds)
+    acc = _StatAcc()
+    for p in paths:
+        preds_p = _normalize_preds(p, raw_preds)
+        names = list(dict.fromkeys([q[0] for q in preds_p] + [column]))
+        if None in names and len(names) > 1:
+            raise ValueError("single-column files take column=None "
+                             "predicates only; name table columns explicitly")
+        keep = _zone_keep(p, preds_p, names=[n for n in names
+                                             if n is not None])
+        for rows in _lockstep_chunks(p, names, device, keep=keep):
+            blocks, cdtype, vtype, valid, vmask = rows[column]
+            if valid == 0:
+                continue
+            mask = _chunk_row_mask(rows, preds_p)
+            if vmask is not None:  # null values don't aggregate
+                mask = vmask if mask is None else mask & vmask
+            acc.feed_flat(_flatten_logical(blocks, cdtype, vtype), valid, mask)
+    r = acc.result()
+    return _map_str_result(r, vdict0) if vdict0 is not None else r
+
+
+# ---------------------------------------------------------------------------
+# GROUP BY: per-group sum/min/max/count of a value column grouped by an
+# integer key column, reduced on the device window by window with the scans'
+# exactness. Rows that leave every group (tail padding, a null key or value,
+# a failed WHERE, a key outside [0, k)) go to a trash slot k. The reduction
+# is plain torch (index_add_ for counts and sums, scatter_reduce_ amin/amax
+# for extremes, the same int64 forms as the scans):
+#
+#   int   (values of up to 32 bits) [count, sum of the signed key]; the host
+#         adds count * offset for unsigned columns
+#   i64   (64-bit values, int64 semantics) [count, sum of the low 32-bit
+#         halves, sum of the high halves]
+#   f32 / [finite, NaN, +inf, -inf counts, then the superaccumulator bins
+#   f64   of the scans, (sign, bucket, plane), per group]
+#
+# and the extremes on signed keys (total-order keys for floats, NaN rows
+# left out). Every addend is under 2^32 in magnitude, so an int64 slot holds
+# any 2^31 rows: the accumulator stays on the device across windows and
+# files, and leaves it in ONE fetch per call (per 2^31 rows).
+
+_GROUP_CAP_INT = 65536
+_GROUP_CAP_FLOAT = 1024
+#: few groups, or one hot group of a skewed key, put the atomic adds of a
+#: window on a handful of addresses: a group accumulator is spread over
+#: copies (row i adds into copy i % S), as many as _GROUP_BYTES of device
+#: memory holds, at most _SPREAD
+_GROUP_BYTES = 1 << 25
+_GROUP_FLUSH_ROWS = 1 << 31
+
+
+def _spread_of(slots: int, width: int) -> int:
+    """Copies of an accumulator of `slots` slots of `width` int64 columns."""
+    return max(1, min(_SPREAD, _GROUP_BYTES // (slots * width * 8)))
+
+
+class _GroupAcc:
+    """Per-group accumulator on the device, shared by every window and file
+    of one group_stats call (see above)."""
+
+    def __init__(self, k: int, flat: _Flat, device):
+        self.k = k
+        self.kind = ("i64" if flat.bits == 64 else "int") \
+            if flat.kind == "int" else flat.kind
+        self.offset = flat.offset
+        if self.kind == "int":
+            self.n_cols = 2
+        elif self.kind == "i64":
+            self.n_cols = 3
+        else:
+            _dt, _e, _f, planes, buckets, _d = _FLOAT_SPEC[self.kind]
+            self.n_cols = 4 + 2 * buckets * planes
+        self.spread = _spread_of(k + 1, self.n_cols + 2)
+        slots = self.spread * (k + 1)
+        self.add = torch.zeros(slots * self.n_cols, dtype=torch.int64,
+                               device=device)
+        self.mn = torch.full((slots,), _imax(torch.int64), dtype=torch.int64,
+                             device=device)
+        self.mx = torch.full((slots,), _imin(torch.int64), dtype=torch.int64,
+                             device=device)
+        self.rows = 0
+        self.parts = []  # fetched (sums (k, n_cols), mins (k,), maxs (k,))
+
+    def feed(self, flat_k: _Flat, flat_v: _Flat, valid: int, mask):
+        """One lockstep window: group numbers from `flat_k`, values from
+        `flat_v`, the first `valid` rows, `mask` (None or a bool tensor)
+        keeping rows."""
+        if self.rows + valid >= _GROUP_FLUSH_ROWS:
+            self.flush()
+        self.rows += valid
+        k = self.k
+        g = flat_k.key[:valid].to(torch.int64) + flat_k.offset
+        # a negative key indexes from the end, as the reference's scatter
+        # does (reachable only under an explicit max_groups)
+        g = torch.where(g < 0, g + (k + 1), g)
+        ok = (g >= 0) & (g < k)
+        if mask is not None:
+            ok = ok & mask[:valid]
+        g = torch.where(ok, g, k)
+        copy = 0
+        if self.spread > 1:
+            copy = (torch.arange(valid, device=g.device) % self.spread) * (k + 1)
+        slot = g + copy
+        x = flat_v.key[:valid]
+        ones = torch.ones(valid, dtype=torch.int64, device=g.device)
+        cols = self.n_cols
+        if self.kind == "int":
+            self.add.index_add_(0, slot * cols, ones)
+            self.add.index_add_(0, slot * cols + 1, x.to(torch.int64))
+            ext, ext_slot = x.to(torch.int64), slot
+        elif self.kind == "i64":
+            self.add.index_add_(0, slot * cols, ones)
+            self.add.index_add_(0, slot * cols + 1, x & 0xFFFFFFFF)
+            self.add.index_add_(0, slot * cols + 2, x >> 32)
+            ext, ext_slot = x, slot
+        else:
+            kind = self.kind
+            _dt, _e, fbits, planes, buckets, _d = _FLOAT_SPEC[kind]
+            sign, exp, frac, special = _float_fields(x, kind)
+            is_nan = special & (frac != 0)
+            # column 0 finite, 1 NaN, 2 +inf, 3 -inf
+            cls = torch.where(special, torch.where(is_nan, 1, 2 + sign), 0)
+            self.add.index_add_(0, slot * cols + cls, ones)
+            ep = exp.clamp(min=1)
+            m = torch.where(special, 0, frac | ((exp > 0).to(x.dtype) << fbits))
+            shifted = m << (ep & 7)
+            bins = slot * cols + 4 + (sign * buckets + (ep >> 3)) * planes
+            for p in range(planes):
+                plane = (shifted >> (32 * p)) & 0xFFFFFFFF if planes > 1 else shifted
+                self.add.index_add_(0, bins + p, plane.to(torch.int64))
+            ext = _total_order_key(x, kind).to(torch.int64)
+            ext_slot = torch.where(is_nan, k, g) + copy
+        self.mn.scatter_reduce_(0, ext_slot, ext, "amin")
+        self.mx.scatter_reduce_(0, ext_slot, ext, "amax")
+
+    def flush(self) -> None:
+        """Fold the spread copies on the device and fetch the k groups (the
+        trash slot stays behind) in ONE copy; reset the device state."""
+        if not self.rows:
+            return
+        k, s, c = self.k, self.spread, self.n_cols
+        sums = self.add.view(s, k + 1, c).sum(0)[:k]
+        mins = self.mn.view(s, k + 1).amin(0)[:k]
+        maxs = self.mx.view(s, k + 1).amax(0)[:k]
+        out = _fetch_np(torch.cat([sums.reshape(-1), mins, maxs]))
+        self.parts.append((out[:k * c].reshape(k, c), out[k * c:k * c + k],
+                           out[k * c + k:]))
+        self.add.zero_()
+        self.mn.fill_(_imax(torch.int64))
+        self.mx.fill_(_imin(torch.int64))
+        self.rows = 0
+
+    def result(self) -> dict:
+        """{group: {sum, min, max, count}} for the non-empty groups, in
+        ascending group number; Python ints and floats."""
+        self.flush()
+        if not self.parts:
+            return {}
+        n_count = 4 if self.kind in ("f32", "f64") else 1
+        counts = sum(p[0][:, :n_count].sum(1) for p in self.parts)
+        mins = np.minimum.reduce([p[1] for p in self.parts])
+        maxs = np.maximum.reduce([p[2] for p in self.parts])
+        groups = np.flatnonzero(counts)
+        if self.kind in ("int", "i64"):
+            # exact Python ints (object arrays), added over the fetches
+            sums = sum(p[0][groups, 1:].astype(object) for p in self.parts)
+            if self.kind == "int":
+                total = sums[:, 0] + counts[groups].astype(object) * self.offset
+            else:
+                total = (sums[:, 1] << 32) + sums[:, 0]
+            off = self.offset
+            return {g: {"sum": s, "min": mn + off, "max": mx + off, "count": c}
+                    for g, s, mn, mx, c in zip(
+                        groups.tolist(), total.tolist(), mins[groups].tolist(),
+                        maxs[groups].tolist(), counts[groups].tolist())}
+        kind = self.kind
+        denom_bits = _FLOAT_SPEC[kind][5]
+        out = {}
+        for g in groups.tolist():
+            n_nan, n_pinf, n_ninf = (sum(int(p[0][g, j]) for p in self.parts)
+                                     for j in (1, 2, 3))
+            if n_nan or (n_pinf and n_ninf):
+                total = float("nan")
+            elif n_pinf:
+                total = float("inf")
+            elif n_ninf:
+                total = float("-inf")
+            else:
+                num = sum(_float_bins_to_int(p[0][g, 4:], kind)
+                          for p in self.parts)
+                total = float(Fraction(num, 1 << denom_bits)) if num else 0.0
+            if n_nan:
+                mn = mx = float("nan")
+            else:
+                mn = _float_of_key(int(mins[g]), kind)
+                mx = _float_of_key(int(maxs[g]), kind)
+            out[g] = {"sum": total, "min": mn, "max": mx,
+                      "count": int(counts[g])}
+        return out
+
+
+def _merge_group_results(subs, str_value: bool) -> dict:
+    """Merge per-file group_stats results (string-keyed or string-valued
+    datasets: each file owns its dictionaries, so merging happens at the
+    label level). Integer sums add exactly; float sums add the per-file
+    exactly-rounded totals."""
+    out = {}
+    for sub in subs:
+        for g, s in sub.items():
+            cur = out.get(g)
+            if cur is None:
+                out[g] = cur = dict(s)
+                cur.pop("n_dict", None)  # per-file dictionary size
+                continue
+            cur["count"] += s["count"]
+            if str_value:
+                cur["min"] = min(cur["min"], s["min"])
+                cur["max"] = max(cur["max"], s["max"])
+            else:
+                cur["sum"] = cur["sum"] + s["sum"]
+                cur["min"] = _merge_extreme(cur["min"], s["min"], min)
+                cur["max"] = _merge_extreme(cur["max"], s["max"], max)
+    return out
+
+
+def _stats_summary(paths, column):
+    """scan_column-compatible {count, min, max, nan} from the zone maps
+    alone (no decode), or None when any chunk lacks stats. min/max in the
+    scans' comparison conventions (logical ints, int64 semantics for 64-bit
+    carriers, floats as floats, string columns as dictionary codes); count
+    excludes nulls, `nan` flags any NaN."""
+    total, lo, hi, nan = 0, None, None, False
+    for p in paths:
+        try:
+            chunks, _cd, _t, _vt, n_values, _b, nulls = _column_layout(
+                p, column)
+        except (ValueError, KeyError):
+            return None
+        n_rows = (n_values if n_values is not None
+                  else sum(m["n_blocks"] for m in chunks) * layout.BLOCK)
+        total += n_rows - (int(nulls["n_null"]) if nulls else 0)
+        for m in chunks:
+            st = m.get("stats")
+            if not isinstance(st, dict):
+                return None
+            if st.get("nan"):
+                nan = True
+            if "lo" in st:
+                lo = st["lo"] if lo is None or st["lo"] < lo else lo
+                hi = st["hi"] if hi is None or st["hi"] > hi else hi
+    return {"count": total, "min": lo, "max": hi, "nan": nan}
+
+
+def group_stats(path, key: str, value: str, max_groups: Optional[int] = None,
+                device=None, preds=()) -> dict:
+    """GROUP BY pushdown over a compressed table file: per-group
+    sum/min/max/count of the `value` column grouped by the integer `key`
+    column, decoded and reduced on the device with the scans' exactness
+    (integer sums exact, float sums exactly rounded). Keys must be
+    non-negative integers of up to 32 bits; the group count comes from the
+    key's zone maps (or a key scan) unless `max_groups` is given (caps:
+    65536 for integer values, 1024 for float values, the reference's). The
+    columns must share block layout (equal length and chunking). Returns
+    {group: {sum, min, max, count}} for the non-empty groups, in ascending
+    group number. A STRING `key` groups by its dictionary codes and labels
+    the result with the strings; a string `value` aggregates lexicographic
+    min/max/count (sum is None). A LIST of paths: integer-keyed numeric
+    groups share one exact accumulator; string-keyed or string-valued
+    groups merge per-file results. `preds` ANDs (column, op, value) WHERE
+    predicates before grouping, with zone-map chunk pruning."""
+    device = eng.resolve_device(device)
+    paths = _paths(path)
+    kdict = _str_dict_of(paths[0], key)
+    vdict = _str_dict_of(paths[0], value)
+    raw_preds = list(preds)
+    if len(paths) > 1 and (kdict is not None or vdict is not None):
+        subs = [group_stats(p, key, value, max_groups, device, raw_preds)
+                for p in paths]
+        return _merge_group_results(subs, vdict is not None)
+    if max_groups is None:
+        if kdict is not None:
+            if kdict.size == 0:
+                return {}
+            max_groups = int(kdict.size)
+        else:
+            # the group count needs the key range only: header-only when
+            # zone maps cover the column, one key scan otherwise
+            ks = _stats_summary(paths, key)
+            if ks is None:
+                ks = scan_column(path, column=key, device=device)
+            if ks["count"] == 0:
+                return {}
+            if ks["min"] < 0:
+                raise ValueError(f"group keys must be >= 0; {key!r} has "
+                                 f"min {ks['min']}")
+            max_groups = int(ks["max"]) + 1
+    k = int(max_groups)
+
+    acc = None
+    for p in paths:
+        preds_p = _normalize_preds(p, raw_preds)
+        names = list(dict.fromkeys([key, value] + [q[0] for q in preds_p]))
+        keep = _zone_keep(p, preds_p, names=names)
+        for rows in _lockstep_chunks(p, names, device, keep=keep):
+            kb, kdt, kvt, _k_valid, k_mask = rows[key]
+            vb, vdt, vvt, v_valid, v_mask = rows[value]
+            flat_v = _flatten_logical(vb, vdt, vvt)
+            flat_k = _flatten_logical(kb, kdt, kvt)
+            if flat_k.kind != "int" or flat_k.bits == 64:
+                raise ValueError(
+                    f"group key column {key!r} must be an integer column of "
+                    "width <= 32 (u8/u16/u32 or signed)")
+            if v_valid == 0:
+                continue
+            mask = k_mask
+            if v_mask is not None:
+                mask = v_mask if mask is None else mask & v_mask
+            if preds_p:  # WHERE: failing rows leave every group
+                pm = _chunk_row_mask(rows, preds_p)
+                mask = pm if mask is None else mask & pm
+            if flat_v.kind != "int" and k > _GROUP_CAP_FLOAT:
+                raise ValueError(
+                    f"group_stats over float columns caps at "
+                    f"{_GROUP_CAP_FLOAT} groups (got {k})")
+            if flat_v.kind == "int" and flat_v.bits < 64 and k > _GROUP_CAP_INT:
+                # (64-bit values have no cap, as in the reference)
+                raise ValueError(f"group_stats caps at {_GROUP_CAP_INT} "
+                                 f"groups (got {k})")
+            if acc is None:
+                acc = _GroupAcc(k, flat_v, flat_v.key.device)
+            acc.feed(flat_k, flat_v, v_valid, mask)
+    out = acc.result() if acc is not None else {}
+    if vdict is not None:  # string value column: codes -> labels
+        out = {g: _map_str_result(s, vdict) for g, s in out.items()}
+    if kdict is not None:  # string key column: label groups
+        out = {str(kdict[g]): s for g, s in out.items()}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# distinct / value_counts / top_k / quantile: the remaining pushdowns.
+# distinct reads dictionaries and run values without decoding (host only);
+# value_counts counts searchsorted codes of a device dictionary; top_k keeps
+# k candidates per decoded run on signed keys; quantile counts.
+
+_VALUE_COUNTS_CAP = 65536
+
+
+def distinct(path, column: Optional[str] = None) -> np.ndarray:
+    """Sorted distinct values of a compressed column, on the host: dict
+    chunks read only their dictionaries and rle chunks only their run values
+    (no decode at all); string columns return their sorted dictionary;
+    other codecs decode chunk by chunk and merge. Tail padding repeats the
+    final value, so it never adds a distinct value."""
+    paths = _paths(path)
+    if len(paths) > 1:  # sharded dataset: exact union of per-file sets
+        parts = [p for p in (distinct(q, column) for q in paths) if p.size]
+        if not parts:
+            return distinct(paths[0], column)
+        return np.unique(np.concatenate(parts))
+    path = paths[0]
+    (chunks, cdtype, transform, vtype, n_values, base_off,
+     nulls_meta) = _column_layout(path, column)
+    d = _str_dict_of(path, column)
+    if nulls_meta is not None and _all_null(chunks, n_values, nulls_meta):
+        # all null: the fillers are synthetic (otherwise every filler copies
+        # a value that also occurs non-null, so the set is unaffected)
+        return np.empty(0, d.dtype if d is not None else layout.np_dtype(cdtype))
+    if d is not None:
+        return d.copy()  # built from the data: every entry occurs
+    parts = []
+    with open(path, "rb") as f:
+        for meta in chunks:
+            f.seek(base_off + meta["offset"])
+            raw = f.read(meta["nbytes"])
+            if meta["codec"] == "dict":
+                vals, _ = fio._split_dict_payload(meta, raw, meta["n_blocks"],
+                                                  cdtype)
+            elif meta["codec"] == "rle":
+                vals = np.unique(fio._split_rle_payload(
+                    meta, raw, meta["n_blocks"], cdtype)[3])
+            else:
+                vals = np.unique(fio._decode_chunk(
+                    meta, raw, meta["n_blocks"], cdtype).reshape(-1))
+            parts.append(np.asarray(vals))
+    if not parts:
+        return np.empty(0, layout.np_dtype(cdtype))
+    merged = np.unique(np.concatenate(parts))
+    if transform is not None:  # transforms reorder the wire domain
+        merged = np.unique(fio.apply_inverse_transform(merged, transform))
+    if vtype == "bool":
+        return merged.astype(bool)
+    if vtype is not None and vtype.startswith(("datetime64", "timedelta64")):
+        return merged.view(np.dtype(vtype))  # int64 order == temporal order
+    return merged
+
+
+def _all_null(chunks, n_values, nulls_meta) -> bool:
+    total = (n_values if n_values is not None
+             else sum(c["n_blocks"] for c in chunks) * layout.BLOCK)
+    return nulls_meta["n_null"] >= total
+
+
+def value_counts(path, column: Optional[str] = None,
+                 max_values: int = _VALUE_COUNTS_CAP, device=None) -> dict:
+    """{value: count} over a compressed column, exact. The distinct set
+    (see `distinct`) becomes a sorted device dictionary in the column's key
+    domain; each decoded run counts its searchsorted codes with index_add_
+    on the device, and the counts leave it in ONE fetch. String columns
+    count their dictionary codes directly. Capped at `max_values` distinct
+    values; float columns raise, and so do 64-bit columns: the reference
+    refuses them (its device has no 64-bit integers), and the port keeps
+    the refusal for parity."""
+    device = eng.resolve_device(device)
+    paths = _paths(path)
+    if len(paths) > 1:  # sharded dataset: exact count merge
+        merged = {}
+        for p in paths:
+            for val, cnt in value_counts(p, column, max_values, device).items():
+                merged[val] = merged.get(val, 0) + cnt
+        if len(merged) > max_values:
+            raise ValueError(f"{len(merged)} distinct values exceed "
+                             f"max_values={max_values}")
+        return merged
+    path = paths[0]
+    d = _str_dict_of(path, column)
+    if d is None:
+        chunks, cdtype, _t, vtype, n_values, _b, nulls_meta = _column_layout(
+            path, column)
+        # the refusals, from the header: the reference finds the same dtype
+        # after a host pass over the whole column (an all-null column has
+        # the carrier's dtype there)
+        if nulls_meta is None or not _all_null(chunks, n_values, nulls_meta):
+            if vtype in ("f32", "f64"):
+                raise ValueError("value_counts over float columns is "
+                                 "ill-defined; use group_stats or top_k")
+            if layout.bit_width(cdtype) == 64:
+                raise ValueError("value_counts over 64-bit columns is not "
+                                 "supported without x64; use group_stats")
+        vals = distinct(path, column)
+        if vals.dtype.itemsize * 8 == 64:
+            raise ValueError("value_counts over 64-bit columns is not "
+                             "supported without x64; use group_stats")
+    else:
+        vals = d
+    if vals.size > max_values:
+        raise ValueError(f"{vals.size} distinct values exceed "
+                         f"max_values={max_values}")
+    kcap = int(vals.size)
+    if kcap == 0:
+        return {}
+    # one slot per value and a trash slot, spread as the group accumulator is
+    spread = _spread_of(kcap + 1, 1)
+    counts = torch.zeros(spread * (kcap + 1), dtype=torch.int64, device=device)
+    sset = None
+    for blocks, cdtype, vtype, valid, vmask in _decoded_chunks(
+            path, column, device, natural=True):
+        if valid == 0:
+            continue
+        flat = _flatten_logical(blocks, cdtype, vtype).head(valid)
+        if d is not None:  # string codes
+            codes = flat.key.to(torch.int64) + flat.offset
+        else:
+            if sset is None:  # the dictionary in the key's own domain
+                keys = vals.astype(np.uint8) if vals.dtype == bool else vals
+                sset = torch.from_numpy(keys.astype(np.int64) - flat.offset
+                                        ).to(device=device, dtype=flat.key.dtype)
+            codes = torch.searchsorted(sset, flat.key)
+        if vmask is not None:  # null rows count nowhere
+            codes = torch.where(vmask[:valid], codes, kcap)
+        if spread > 1:
+            codes = codes + (torch.arange(valid, device=codes.device) % spread) * (kcap + 1)
+        counts.index_add_(0, codes, torch.ones_like(codes))
+    got = _fetch(counts.view(spread, kcap + 1).sum(0)[:kcap])
+    if d is not None:
+        return {str(vals[i]): c for i, c in enumerate(got) if c}
+    if vals.dtype == bool:
+        return {bool(vals[i]): c for i, c in enumerate(got) if c}
+    return {int(vals[i]): c for i, c in enumerate(got) if c}
+
+
+def _chunk_top(flat: _Flat, ok, kk: int, largest: bool) -> torch.Tensor:
+    """One decoded run's top-kk keys, best first, as ONE int64 tensor
+    (behind the count of kept rows when `ok` masks rows). Keys are signed
+    and ordered like the values: the int key, or the IEEE total-order key of
+    a float (NaN above +inf, -NaN below -inf). Masked rows take the worst
+    key; a caller keeping only the first n_ok never sees one (a masked row
+    can only tie a kept row of the very same key)."""
+    key = flat.key if flat.kind == "int" else _total_order_key(flat.key, flat.kind)
+    key = key.to(torch.int64)
+    if ok is not None:
+        key = torch.where(ok, key, _imin(torch.int64) if largest
+                          else _imax(torch.int64))
+    top = torch.topk(key, kk, largest=largest, sorted=True).values
+    if ok is None:
+        return top
+    return torch.cat([ok.sum(dtype=torch.int64).reshape(1), top])
+
+
+def _bound_int(key_tuple) -> int:
+    """A zone-map bound (the reference's unsigned key tuple, (hi, lo) for
+    64 bits) as one unsigned int."""
+    out = 0
+    for part in key_tuple:
+        out = (out << 32) | int(part)
+    return out
+
+
+def top_k(path, column: Optional[str] = None, k: int = 10,
+          largest: bool = True, device=None) -> list:
+    """The k largest (or smallest) values of a compressed column,
+    duplicates included, best first. Each decoded run reduces to k
+    candidates on the device (torch.topk on one signed int64 key: ints by
+    value, u64 with the scans' int64 semantics; floats by IEEE total order,
+    NaN above +inf and -NaN below -inf; strings by dictionary code); only
+    those reach the host merge. Null rows never rank. Runs are visited
+    best-zone-map-bound first in growing batches, and the walk stops once
+    the k-th candidate beats every remaining chunk's bound."""
+    if k <= 0:
+        return []
+    device = eng.resolve_device(device)
+    paths = _paths(path)
+    if len(paths) > 1:  # sharded dataset: exact k-candidate value merge
+        vals = []
+        for p in paths:
+            vals += top_k(p, column, k, largest, device)
+
+        def keyf(v):  # IEEE total order: +NaN above +inf, -NaN below -inf
+            if isinstance(v, float) and math.isnan(v):
+                return (-1 if math.copysign(1.0, v) < 0 else 1, 0.0)
+            return (0, v)
+
+        return sorted(vals, key=keyf, reverse=largest)[:k]
+    path = paths[0]
+    d = _str_dict_of(path, column)
+    cands = []  # signed keys (see _chunk_top)
+    domain = None  # (kind, bits, offset) of the keys, once a row ranked
+
+    def visit(keep):
+        nonlocal domain
+        for blocks, cdtype, vtype, valid, vmask in _decoded_chunks(
+                path, column, device, keep=keep, natural=True):
+            if valid == 0:
+                continue
+            flat = _flatten_logical(blocks, cdtype, vtype).head(valid)
+            ok = None if vmask is None else vmask[:valid]
+            got = _fetch(_chunk_top(flat, ok, min(k, valid), largest))
+            n_ok = valid if ok is None else got.pop(0)
+            if n_ok:
+                domain = (flat.kind, flat.bits, flat.offset)
+                cands.extend(got[:n_ok])
+
+    chunks, cdtype_l, transform_l, vtype_l, _nv, _bo, _nm = _column_layout(
+        path, column)
+    zkind, zbits = zonemaps.topk_kind(cdtype_l, vtype_l, transform_l)
+    bounds = {i: zonemaps.topk_bound(meta, zkind, zbits, largest)
+              for i, meta in enumerate(chunks)}
+    order = [i for i, b in bounds.items() if b is not None]
+    order.sort(key=lambda i: bounds[i], reverse=largest)
+    if len(order) == len(chunks) and all(
+            "stats" not in chunks[i] for i in order):
+        visit(None)  # no zone maps anywhere: one grouped pass
+    else:
+        pos, batch = 0, 1
+        while pos < len(order):
+            if len(cands) >= k:
+                # the bounds are the reference's UNSIGNED keys: a signed key
+                # maps onto them by adding 2^(bits-1) (the flipped top bit)
+                kth = sorted(cands, reverse=largest)[k - 1] + \
+                    (1 << (domain[1] - 1))
+                b = _bound_int(bounds[order[pos]])
+                if (b < kth) if largest else (b > kth):
+                    break  # no remaining chunk can beat the k-th candidate
+            take = order[pos:pos + batch]
+            pos += batch
+            batch *= 4
+            kl = [False] * len(chunks)
+            for i in take:
+                kl[i] = True
+            visit(kl)
+    if domain is None:
+        return []
+    kind, _bits, offset = domain
+    best = sorted(cands, reverse=largest)[:k]
+    if d is not None:
+        return [str(d[c + offset]) for c in best]
+    if kind != "int":
+        return [_float_of_key(c, kind) for c in best]
+    out = [c + offset for c in best]
+    if vtype_l == "bool":
+        return [bool(v) for v in out]
+    if vtype_l is not None and vtype_l.startswith(("datetime64", "timedelta64")):
+        dt = np.dtype(vtype_l)
+        return [np.int64(v).view(dt) for v in out]
+    return out
+
+
+def quantile(path, column: Optional[str] = None, q=0.5, device=None):
+    """EXACT quantile of a compressed column (lower interpolation: the value
+    at zero-based rank floor(q*(n-1)) of the sorted non-null values, numpy's
+    method='lower'). Accepts a scalar q or a list.
+
+    When the distinct set fits value_counts, ONE counting pass answers every
+    q. Otherwise a binary search in the column's own key space runs
+    count_where('le', mid) per step (~32 counts for 32-bit ints, ~64 for
+    64-bit ints and f64), each exact. Columns holding NaN return NaN (numpy
+    semantics); an empty or all-null column returns None."""
+    device = eng.resolve_device(device)
+    qs = np.atleast_1d(np.asarray(q, np.float64))
+    if ((qs < 0) | (qs > 1)).any():
+        raise ValueError("quantiles must be in [0, 1]")
+    # zone maps make the leading summary free: count from the headers,
+    # min/max/NaN from the chunk stats (string columns keep the scan: their
+    # min/max are labels, not codes)
+    s = (None if _str_dict_of(_paths(path)[0], column) is not None
+         else _stats_summary(_paths(path), column))
+    if s is not None and s["nan"]:
+        s = {"count": s["count"], "min": float("nan"), "max": float("nan")}
+    if s is None:
+        s = scan_column(path, column=column, device=device)
+    n = s["count"]
+    scalar = np.isscalar(q) or np.asarray(q).ndim == 0
+    if n == 0:
+        return None if scalar else [None] * len(qs)
+    if isinstance(s["min"], float) and np.isnan(s["min"]):
+        return float("nan") if scalar else [float("nan")] * len(qs)
+    ranks = [int(np.floor(qq * (n - 1))) for qq in qs]
+
+    try:  # one counting pass over the distinct set
+        vc = value_counts(path, column=column, device=device)
+    except ValueError:
+        vc = None
+    if vc is not None:
+        keys = sorted(vc)
+        cum = np.cumsum([vc[kk] for kk in keys])
+        out = [keys[int(np.searchsorted(cum, r + 1))] for r in ranks]
+        return out[0] if scalar else out
+
+    is_float = isinstance(s["min"], float)
+    if is_float:
+        # search the column's OWN key space: an f32 column probes with f32
+        # values, or count_where's rounding would desync the search
+        f32 = _column_layout(_paths(path)[0], column)[3] == "f32"
+        bits = 32 if f32 else 64
+        fmt = "<f" if f32 else "<d"
+        ufmt = "<I" if f32 else "<Q"
+        top = 1 << (bits - 1)
+        ones = (1 << bits) - 1
+
+        def to_key(v):  # the total-order key as one unsigned Python int
+            b = struct.unpack(ufmt, struct.pack(fmt, v))[0]
+            return (~b & ones) if b >> (bits - 1) else b | top
+
+        def of_key(kk):
+            b = (kk ^ top) if kk >> (bits - 1) else (~kk & ones)
+            return struct.unpack(fmt, struct.pack(ufmt, b))[0]
+    else:
+        to_key = of_key = int
+
+    out = []
+    for r in ranks:
+        lo, hi = to_key(s["min"]), to_key(s["max"])
+        while lo < hi:
+            mid = (lo + hi) // 2
+            probe = of_key(mid)
+            if is_float and not (s["min"] <= probe <= s["max"]):
+                probe = min(max(probe, s["min"]), s["max"])
+            if count_where(path, "le", probe, column=column,
+                           device=device) >= r + 1:
+                hi = mid
+            else:
+                lo = mid + 1
+        out.append(of_key(lo))
+    return out[0] if scalar else out
+
+
+def median(path, column: Optional[str] = None, device=None):
+    """Exact median (see quantile)."""
+    return quantile(path, column=column, q=0.5, device=device)

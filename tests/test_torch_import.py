@@ -123,19 +123,22 @@ def test_public_codec_names_match_the_reference_package():
 
 
 def test_table_multi_file_and_scan_names_resolve_to_their_modules():
-    """The twelve names of the float / table / scan paths, under the JAX
-    package's names; the analytics entries still to be ported are absent."""
+    """The nineteen names of the float / table / scan / aggregation paths,
+    under the JAX package's names; the analytics entries still to be ported
+    are absent."""
     from fastlanes_tpu_torch import analytics, fio_device, fio_table
 
     homes = {fio_table: ("write_table", "read_table", "read_column", "TableWriter",
                          "StringColumn"),
              fio_device: ("read_files_device", "iter_files_device", "read_column_device"),
-             analytics: ("scan_column", "scan_table", "count_where", "scan_where")}
+             analytics: ("scan_column", "scan_table", "count_where", "scan_where",
+                         "scan_where_multi", "group_stats", "distinct", "value_counts",
+                         "top_k", "quantile", "median")}
     for module, names in homes.items():
         for name in names:
             assert name in fastlanes_tpu_torch.__all__, name
             assert getattr(fastlanes_tpu_torch, name) is getattr(module, name), name
-    for name in ("scan_where_multi", "group_stats", "select", "join", "quantile"):
+    for name in ("select", "join"):
         assert name not in fastlanes_tpu_torch.__all__
         with pytest.raises(AttributeError):
             getattr(fastlanes_tpu_torch, name)

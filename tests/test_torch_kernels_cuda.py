@@ -499,3 +499,49 @@ def test_scans_on_the_card_equal_the_cpu_path(card, tmp_path):
             both(lambda dev: analytics.scan_where(path, op, value, column=name, device=dev))
         both(lambda dev: analytics.scan_where(path, "ge", probe, column="price", where=name,
                                               device=dev))
+
+
+def test_aggregations_on_the_card_equal_the_cpu_path(card, tmp_path):
+    """group_stats, scan_where_multi, value_counts, top_k and quantile on the
+    card return what `device="cpu"` returns (which the CPU tests hold equal
+    to the JAX package's), on a mid-size table: several lockstep windows,
+    few groups (the spread accumulator) and many."""
+    from fastlanes_tpu_torch import analytics, fio_table
+
+    rng = np.random.default_rng(17)
+    n = 200 * 1024 + 333
+    cols = small_table(rng, n)
+    cols["store"] = rng.integers(0, 1000, n).astype(np.uint16)
+    cols["amount"] = rng.integers(-(1 << 50), 1 << 50, n, dtype=np.int64)
+    cols["units"] = rng.integers(0, 200, n).astype(np.uint8)
+    cols["price"][rng.integers(0, n, 40)] = np.nan
+    cols["price"][cols["store"] == 7] = -0.0
+    path = str(tmp_path / "agg.flt")
+    fio_table.write_table(path, cols, chunk_blocks=8)
+
+    def both(fn):
+        a, b = fn(None), fn("cpu")
+        assert repr(a) == repr(b), (a, b)  # repr: NaN-safe, type- and sign-strict
+        return a
+
+    for key, value in (("cur", "price"), ("cur", "qty"), ("cur", "ratio"), ("cur", "visits"),
+                       ("cur", "cur"), ("store", "price"), ("store", "amount"),
+                       ("units", "key"), ("change", "qty")):
+        if key == "change":
+            with pytest.raises(ValueError):
+                analytics.group_stats(path, key, value)
+            continue
+        both(lambda dev: analytics.group_stats(path, key, value, device=dev))
+    both(lambda dev: analytics.group_stats(path, "cur", "price", device=dev,
+                                           preds=[("qty", "ge", 70_250)]))
+    both(lambda dev: analytics.scan_where_multi(
+        path, [("cur", "eq", "EUR"), ("qty", "ge", 70_100),
+               ("day", "ge", np.datetime64("2022-01-01"))], column="price", device=dev))
+    for column in ("cur", "units", "change", "store"):
+        both(lambda dev: analytics.value_counts(path, column, device=dev))
+    for column in ("price", "key", "ratio", "amount", "visits", "cur"):
+        for largest in (True, False):
+            both(lambda dev: analytics.top_k(path, column, k=20, largest=largest, device=dev))
+    both(lambda dev: analytics.quantile(path, "qty", [0.01, 0.5, 0.99], device=dev))
+    both(lambda dev: analytics.median(path, "ratio", device=dev))
+    both(lambda dev: analytics.quantile(path, "amount", 0.9, device=dev))

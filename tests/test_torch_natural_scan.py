@@ -167,3 +167,33 @@ def test_scan_matches_ground_truth_other_widths(tmp_path, calls, dtype, top):
     fio.write_file(p, vals, codec="delta")
     assert analytics.scan_column(p, device="cpu") == exact(vals) == jan.scan_column(p)
     assert calls["natural"] >= 1 and calls["orig"] == 0 and calls["untranspose"] == 0, calls
+
+
+def test_value_counts_and_top_k_sorted_skip_the_relayout(tmp_path, calls):
+    """tests/test_natural_scan.py's case: a sorted delta column of whole
+    blocks counts and ranks its values in natural order, no relayout."""
+    vals = np.sort(RNG.integers(0, 50, 8 * 1024).astype(np.uint32))
+    p = str(tmp_path / "v.flt")
+    fio.write_file(p, vals, codec="delta", chunk_blocks=2)
+    u, c = np.unique(vals, return_counts=True)
+    got = analytics.value_counts(p, device="cpu")
+    assert got == dict(zip(u.tolist(), c.tolist())) == jan.value_counts(p)
+    top = analytics.top_k(p, k=5, device="cpu")
+    assert top == np.sort(vals)[-5:][::-1].tolist() == jan.top_k(p, k=5)
+    assert calls["natural"] >= 1 and calls["orig"] == 0 and calls["untranspose"] == 0, calls
+
+
+def test_value_counts_and_top_k_nullable_keep_the_positional_path(tmp_path, calls):
+    """The other direction: under a validity bitmap the rows must line up
+    with the mask, so the original-order kernel runs and natural order does
+    not."""
+    vals = np.sort(RNG.integers(0, 50, 4 * 1024).astype(np.uint32))
+    mask = np.arange(vals.size) % 5 == 0
+    p = str(tmp_path / "n.flt")
+    fio.write_file(p, np.ma.MaskedArray(vals, mask=mask), codec="delta")
+    u, c = np.unique(vals[~mask], return_counts=True)
+    got = analytics.value_counts(p, device="cpu")
+    assert got == dict(zip(u.tolist(), c.tolist())) == jan.value_counts(p)
+    top = analytics.top_k(p, k=5, largest=False, device="cpu")
+    assert top == np.sort(vals[~mask])[:5].tolist() == jan.top_k(p, k=5, largest=False)
+    assert calls["natural"] == 0 and calls["orig"] >= 1, calls
