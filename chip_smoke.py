@@ -35,11 +35,20 @@ a nullable region key): `scan_where_multi`, `group_stats` (string and
 integer keys, float, 64-bit and string values, WHERE, a two-file dataset),
 `value_counts`, `top_k`, `distinct`, `quantile` and `median`, each equal to
 a NumPy oracle written here with the launches and host fetches of every call
-counted. Last it times each kernel at the largest shape its path gave it,
+counted. The C++ host codec (built with g++ beside nvcc) must load, and is
+timed against the NumPy host codec at 2^24 values of every dtype. The rows
+follow: `select` (two predicates, a date range over every column, LIMIT
+without ORDER BY, ORDER BY ... LIMIT over f64, string, date and u16 keys
+with heavy ties, over a u8 key under WHERE, where a row the WHERE drops ties
+the worst real key, and over a two-file dataset) and `join` (the group
+table with a 65536-sku dimension on a u32 key, inner, and the table with a
+20-currency dimension on a string key, left), each equal to a NumPy oracle
+that spells out the tie rule; beside them the two tables are written again
+with the host codec and without it. Last it times each kernel at the largest shape its path gave it,
 beside its bound, its plain version and a device copy, all eleven kernels
 of every dtype at a size whose bytes bound is at least 0.1 ms, the group
-accumulator with and without its spread copies, and each read, encode, scan
-and aggregation end to end. On every driven path, each (kernel,
+accumulator with and without its spread copies, and each read, encode, scan,
+aggregation and query end to end (a query also in rows out per second). On every driven path, each (kernel,
 dtype) pair is held against its plain version on the tensors of its largest
 launch there, and the `kernels` line counts the launches by dtype.
 
@@ -58,13 +67,14 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 
 import fastlanes_tpu_torch
-from fastlanes_tpu_torch import alp, analytics, fio, fio_device, fio_table, transforms
+from fastlanes_tpu_torch import alp, analytics, fio, fio_device, fio_table, native, transforms
 from fastlanes_tpu_torch.core import layout
 from fastlanes_tpu_torch import kernels
 from fastlanes_tpu_torch.kernels import build
@@ -214,9 +224,14 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
+    """nvcc of the CUDA kernels, with the g++ build of the native host codec
+    running beside it (phase_native reports it)."""
     t0 = time.perf_counter()
+    host_codec = threading.Thread(target=native.available)
+    host_codec.start()
     path = build.build(force=True)
     build.load()
+    host_codec.join()
     usage = build.ptxas_usage(build.last_build_log or "")
     registers = [u.get("registers", 0) for u in usage.values()]
     spills = [u.get("spill_store_bytes", 0) for u in usage.values()]
@@ -583,7 +598,7 @@ def oracle_check(name: str, enc, blocks: np.ndarray, lo: int) -> None:
     elif enc.codec == "ffor":
         want = npref.for_pack(blocks, enc.params["reference"], w, dt)
     elif enc.codec in ("delta", "zdelta"):
-        _, base, deltas = fio._delta_parts(blocks, dt)
+        _, base, deltas = fio._delta_parts(blocks, dt, native.available())
         if enc.codec == "zdelta":
             deltas = fio._zigzag_deltas(deltas)
         want = npref.pack(deltas, w, dt)
@@ -591,7 +606,7 @@ def oracle_check(name: str, enc, blocks: np.ndarray, lo: int) -> None:
             raise AssertionError(f"{name}: base of blocks [{lo}, {hi}) differs from the oracle")
     elif enc.codec == "rle":
         counts, run_values, idx = fio._rle_parts(blocks)
-        _, base, deltas = fio._delta_parts(idx, "u16")
+        _, base, deltas = fio._delta_parts(idx, "u16", native.available())
         want = npref.pack(deltas, 1, "u16")
         all_counts = host("counts")
         start = int(all_counts[:lo].sum())
@@ -1483,6 +1498,310 @@ def phase_aggregate(table: dict, tmp: str, scale: int, device=None) -> dict:
             "by_dtype": by_dtype}
 
 
+# -- row materialisation: select and join, against NumPy oracles -----------
+
+
+def same_rows(got, want) -> bool:
+    """select / join results equal: the same column order, masked or not,
+    the same dtypes (unicode columns: any width), shapes and masks, and the
+    same values wherever no mask hides them (floats bit for bit)."""
+    if not isinstance(got, dict) or list(got) != list(want):
+        return False
+    for name, w in want.items():
+        g = got[name]
+        if type(g) is not type(w) or g.shape != w.shape or not (
+                g.dtype == w.dtype or g.dtype.kind == w.dtype.kind == "U"):
+            return False
+        present = ~np.ma.getmaskarray(w)
+        if not np.array_equal(np.ma.getmaskarray(g), ~present):
+            return False
+        gd, wd = np.ma.getdata(g)[present], np.ma.getdata(w)[present]
+        if wd.dtype.kind == "f":
+            gd, wd = float_bits(gd), float_bits(wd)
+        if not np.array_equal(gd, wd):
+            return False
+    return True
+
+
+def order_key(values) -> np.ndarray:
+    """An order column as int64 keys in the order ORDER BY ... LIMIT ranks
+    it: integers by value (64-bit ones in int64 semantics), floats in IEEE
+    total order, strings by their sorted label."""
+    vals = np.ma.getdata(values)
+    if vals.dtype.kind == "U":
+        return np.searchsorted(np.unique(vals), vals).astype(np.int64)
+    if vals.dtype == np.float32:
+        bits = vals.view(np.int32).astype(np.int64)
+        return bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    if vals.dtype == np.float64:
+        bits = vals.view(np.int64)
+        return bits ^ ((bits >> 63) & 0x7FFFFFFFFFFFFFFF)
+    if vals.dtype.kind in "mM" or vals.dtype.itemsize == 8:
+        return vals.view(np.int64)
+    return vals.astype(np.int64)
+
+
+def oracle_top(values, ok, k: int, desc: bool, window_rows: int) -> np.ndarray:
+    """The rows ORDER BY ... LIMIT k returns from one file: the rows `ok`
+    keeps (nulls never rank), best key first; equal keys by lockstep window
+    (`window_rows` rows each), then by row, lowest first for keys of up to 32
+    bits and highest first for 64-bit keys."""
+    ok = ok & ~np.ma.getmaskarray(values)
+    rows = np.flatnonzero(ok)
+    key = order_key(values)[rows]
+    dt = np.ma.getdata(values).dtype
+    high_first = dt.kind != "U" and dt.itemsize == 8
+    order = np.lexsort((-rows if high_first else rows, rows // window_rows,
+                        ~key if desc else key))
+    return rows[order][:k]
+
+
+def numpy_order(keys, desc: bool) -> np.ndarray:
+    """ORDER BY over merged host rows: a stable numpy sort (u64 as int64,
+    nulls last), reversed for DESC."""
+    null = np.ma.getmaskarray(keys)
+    kd = np.asarray(np.ma.getdata(keys))
+    if kd.dtype == np.uint64:
+        kd = kd.view(np.int64)
+    pos = np.arange(len(kd))
+    vi = pos[~null][np.argsort(kd[~null], kind="stable")]
+    return np.concatenate([vi[::-1] if desc else vi, pos[null]])
+
+
+def window_rows_of(path: str, column: str) -> int:
+    """Rows of one lockstep window of a table column."""
+    col = fio_table.read_table_header(path)["columns"][column]
+    return col["chunk_blocks"] * layout.BLOCK * analytics._LOCKSTEP_WINDOW
+
+
+def dimension_tables(rng, tmp: str) -> dict:
+    """The right sides of the joins: `skus`, 65536 u32 skus of which about 5 %
+    are left out (a left join has misses), with a brand of 40 labels, an f64
+    weight and an i64 pack size with ties; `currencies`, 20 of the 24 `cur`
+    labels with an f64 rate and a u8 zone. Rows shuffled: the join sorts."""
+    sku = rng.permutation(np.flatnonzero(rng.random(65536) >= 0.05)).astype(np.uint32)
+    brands = np.array([f"brand{i:02d}" for i in range(40)])
+    skus = {"sku": sku, "brand": brands[rng.integers(0, 40, sku.size)],
+            "weight": np.round(rng.uniform(0.1, 50.0, sku.size), 3),
+            "pack": np.array([1, 6, 12, 24, 1 << 40], np.int64)[rng.integers(0, 5, sku.size)]}
+    cur = rng.choice(TABLE_WORDS, 20, replace=False)
+    currencies = {"cur": cur, "rate": np.round(rng.uniform(0.01, 10.0, 20), 4),
+                  "zone": rng.integers(0, 5, 20).astype(np.uint8)}
+    out = {}
+    for name, cols in (("skus", skus), ("currencies", currencies)):
+        path = os.path.join(tmp, f"{name}.flt")
+        t0 = time.perf_counter()
+        fio_table.write_table(path, cols)
+        out[name] = {"path": path, "columns": cols, "write_seconds": time.perf_counter() - t0}
+    return out
+
+
+def lookup(dim_keys, keys):
+    """(row of each key in the dimension, matched?)."""
+    order = np.argsort(dim_keys, kind="stable")
+    pos = np.clip(np.searchsorted(dim_keys[order], keys), 0, len(dim_keys) - 1)
+    hit = dim_keys[order][pos] == keys
+    return order[pos], hit
+
+
+def query_calls(tpath: str, gpath: str, halves: list, dims: dict) -> dict:
+    """label -> the call of every query the `query` phase drives and times."""
+    date_range = [("day", "ge", np.datetime64("2020-01-01")),
+                  ("day", "le", np.datetime64("2020-12-31"))]
+    return {
+        "select[2 preds]": lambda device: analytics.select(
+            tpath, ["key", "price", "cur", "visits"],
+            [("cur", "in", ["EUR", "GBP"]), ("qty", "lt", 1_000_000_500)], device=device),
+        "select[8 columns, date range]": lambda device: analytics.select(
+            tpath, None, date_range, device=device),
+        "select[ORDER BY price DESC LIMIT 100]": lambda device: analytics.select(
+            tpath, ["key", "price", "cur"], order_by="price", desc=True, limit=100,
+            device=device),
+        "select[ORDER BY cur LIMIT 300]": lambda device: analytics.select(
+            tpath, ["cur", "key"], order_by="cur", limit=300, device=device),
+        "select[ORDER BY day DESC LIMIT 500]": lambda device: analytics.select(
+            tpath, ["day", "key"], order_by="day", desc=True, limit=500, device=device),
+        "select[ORDER BY store DESC LIMIT 1000]": lambda device: analytics.select(
+            gpath, ["store", "amount"], order_by="store", desc=True, limit=1000,
+            device=device),
+        "select[ORDER BY units DESC LIMIT 1000 WHERE store eq 3]":
+            lambda device: analytics.select(gpath, ["units", "amount"], [("store", "eq", 3)],
+                                            order_by="units", desc=True, limit=1000,
+                                            device=device),
+        "select[ORDER BY units DESC LIMIT 1000 WHERE store eq 3 AND units lt 2]":
+            lambda device: analytics.select(gpath, ["units", "amount"],
+                                            [("store", "eq", 3), ("units", "lt", 2)],
+                                            order_by="units", desc=True, limit=1000,
+                                            device=device),
+        "select[LIMIT 100000 WHERE cur eq JPY]": lambda device: analytics.select(
+            tpath, ["key", "cur"], [("cur", "eq", "JPY")], limit=100_000, device=device),
+        "select[2 files, ORDER BY price LIMIT 50]": lambda device: analytics.select(
+            halves, ["store"], order_by="price", desc=True, limit=50, device=device),
+        "join[groups x skus, inner, store lt 100]": lambda device: analytics.join(
+            gpath, dims["skus"]["path"], "sku", columns=["store", "amount"],
+            preds=[("store", "lt", 100)], device=device),
+        "join[table x currencies, left, qty lt]": lambda device: analytics.join(
+            tpath, dims["currencies"]["path"], "cur", columns=["key", "cur"],
+            preds=[("qty", "lt", 1_000_000_250)], how="left", device=device),
+    }
+
+
+def query_oracles(tpath, tcols, gpath, gcols, halves, dims) -> dict:
+    """label -> the answer of each query of query_calls, from numpy."""
+    tw, gw = window_rows_of(tpath, "key"), window_rows_of(gpath, "store")
+    every_t = np.ones(len(tcols["key"]), bool)
+    every_g = np.ones(len(gcols["store"]), bool)
+
+    def rows_of(cols, names, rows):
+        return {n: cols[n][rows] for n in names}
+
+    out = {}
+    two = np.isin(tcols["cur"], ["EUR", "GBP"]) & (tcols["qty"] < 1_000_000_500)
+    out["select[2 preds]"] = rows_of(tcols, ["key", "price", "cur", "visits"],
+                                     np.flatnonzero(two))
+    day = tcols["day"]
+    in_2020 = (day >= np.datetime64("2020-01-01")) & (day <= np.datetime64("2020-12-31"))
+    out["select[8 columns, date range]"] = rows_of(tcols, list(tcols), np.flatnonzero(in_2020))
+    out["select[ORDER BY price DESC LIMIT 100]"] = rows_of(
+        tcols, ["key", "price", "cur"], oracle_top(tcols["price"], every_t, 100, True, tw))
+    out["select[ORDER BY cur LIMIT 300]"] = rows_of(
+        tcols, ["cur", "key"], oracle_top(tcols["cur"], every_t, 300, False, tw))
+    out["select[ORDER BY day DESC LIMIT 500]"] = rows_of(
+        tcols, ["day", "key"], oracle_top(tcols["day"], every_t, 500, True, tw))
+    out["select[ORDER BY store DESC LIMIT 1000]"] = rows_of(
+        gcols, ["store", "amount"], oracle_top(gcols["store"], every_g, 1000, True, gw))
+    store3 = gcols["store"] == 3
+    out["select[ORDER BY units DESC LIMIT 1000 WHERE store eq 3]"] = rows_of(
+        gcols, ["units", "amount"], oracle_top(gcols["units"], store3, 1000, True, gw))
+    out["select[ORDER BY units DESC LIMIT 1000 WHERE store eq 3 AND units lt 2]"] = rows_of(
+        gcols, ["units", "amount"],
+        oracle_top(gcols["units"], store3 & (gcols["units"] < 2), 1000, True, gw))
+    out["select[LIMIT 100000 WHERE cur eq JPY]"] = rows_of(
+        tcols, ["key", "cur"], np.flatnonzero(tcols["cur"] == "JPY")[:100_000])
+    # a dataset: each file's top 50 (its own windows), merged by a host sort
+    half = len(gcols["store"]) // 2
+    cands = []
+    for start, stop, path in ((0, half, halves[0]), (half, len(gcols["store"]), halves[1])):
+        price = gcols["price"][start:stop]
+        cands.append(start + oracle_top(price, np.ones(stop - start, bool), 50, True,
+                                        window_rows_of(path, "price")))
+    cands = np.concatenate(cands)
+    merged = cands[numpy_order(gcols["price"][cands], True)][:50]
+    out["select[2 files, ORDER BY price LIMIT 50]"] = rows_of(gcols, ["store"], merged)
+    # the joins: the dimension rows looked up by key
+    skus = dims["skus"]["columns"]
+    pos, hit = lookup(skus["sku"], gcols["sku"])
+    rows = np.flatnonzero((gcols["store"] < 100) & hit)
+    want = rows_of(gcols, ["store", "amount"], rows)
+    want.update({c: skus[c][pos[rows]] for c in ("brand", "weight", "pack")})
+    out["join[groups x skus, inner, store lt 100]"] = want
+    cur = dims["currencies"]["columns"]
+    rows = np.flatnonzero(tcols["qty"] < 1_000_000_250)
+    pos, hit = lookup(cur["cur"], tcols["cur"][rows])
+    want = rows_of(tcols, ["key", "cur"], rows)
+    want.update({c: np.ma.MaskedArray(cur[c][pos], mask=~hit) for c in ("rate", "zone")})
+    out["join[table x currencies, left, qty lt]"] = want
+    return out
+
+
+def phase_query(table: dict, groups: dict, tmp: str, device=None) -> dict:
+    """select and join on the two smoke tables and two dimension tables, each
+    answer equal to a NumPy oracle at tolerance 0 (the tie rule of
+    ORDER BY ... LIMIT included), with the launches and host fetches of every
+    call counted; and the writers' walls with the native host codec and
+    without it, in one call."""
+    device = eng.resolve_device(device)
+    tpath, tcols = table["path"], table["columns"]
+    gpath, gcols, halves = groups["path"], groups["columns"], groups["halves"]
+    dims = dimension_tables(np.random.default_rng(SEED + 8), tmp)
+    oracles = query_oracles(tpath, tcols, gpath, gcols, halves, dims)
+    queries = query_calls(tpath, gpath, halves, dims)
+    ck.reset_launches()
+    calls, rows_out = {}, {}
+    for label, call in queries.items():
+        got, counts = counted(lambda: call(device))
+        want = oracles.pop(label)
+        if not same_rows(got, want):
+            raise AssertionError(f"{label}: the rows differ from the oracle's")
+        rows_out[label] = len(next(iter(want.values())))
+        calls[label] = dict(counts, rows=rows_out[label])
+        del got, want
+    if device.type == "cuda":
+        c = calls["select[LIMIT 100000 WHERE cur eq JPY]"]
+        if c["host_fetches"] > 4:
+            raise AssertionError(f"LIMIT without ORDER BY did not stop the walk early: {c}")
+    launches, by_dtype = launch_counts()
+    writers = {}
+    for name, cols in (("table", tcols), ("groups", gcols)):
+        walls = {}
+        for how in ("native", "numpy"):
+            path = os.path.join(tmp, f"rewrite_{name}.flt")
+            real = fio.native.available
+            if how == "numpy":
+                fio.native.available = lambda: False
+            try:
+                t0 = time.perf_counter()
+                fio_table.write_table(path, cols)
+                walls[how + "_seconds"] = time.perf_counter() - t0
+            finally:
+                fio.native.available = real
+            with open(path, "rb") as f, open(tpath if name == "table" else gpath, "rb") as g:
+                if f.read() != g.read():
+                    raise AssertionError(f"the {how} writer's {name} differs from the first")
+            os.remove(path)
+        writers[name] = walls
+    emit({"phase": "query", "tolerance": 0, "oracle": "numpy in this script: the rows each "
+          "query keeps, ORDER BY in IEEE total order with ties by window and then row "
+          "(lowest first for keys of up to 32 bits, highest for 64-bit keys), joins by a "
+          "sorted lookup", "dimensions": {
+              n: {"rows": len(d["columns"]["sku" if n == "skus" else "cur"]),
+                  "write_seconds": d["write_seconds"]} for n, d in dims.items()},
+          "calls": calls, "writer_walls": writers, "launches": launches,
+          "launches_by_dtype": by_dtype})
+    return {"launches": launches, "by_dtype": by_dtype, "rows_out": rows_out,
+            "calls": queries}
+
+
+def phase_native(rng) -> dict:
+    """The C++ host codec: built (it must be, on the card's host), each of
+    pack / unpack / transpose / delta against the NumPy host codec on 2^24
+    values of every dtype, outputs equal and times side by side."""
+    if not native.available():
+        raise AssertionError("the native host codec did not build")
+    times = {}
+    for dtype in layout.DTYPES:
+        t = layout.bit_width(dtype)
+        width = t // 4 + 2
+        n_blocks = (1 << 24) // layout.BLOCK
+        np_dt = layout.np_dtype(dtype)
+        values = rng.integers(0, 1 << width, size=(n_blocks, layout.BLOCK),
+                              dtype=np.uint64).astype(np_dt)
+        base = values[:, :layout.lanes(dtype)].copy()
+        packed = npref.pack(values, width, dtype)
+        row = {"width": width, "values": n_blocks * layout.BLOCK}
+        for op, args in (("pack", (values, width, dtype)), ("unpack", (packed, width, dtype)),
+                         ("transpose", (values, dtype)), ("delta", (values, base, dtype))):
+            ours, theirs = getattr(native, op), getattr(npref, op)
+            if not np.array_equal(ours(*args), theirs(*args)):
+                raise AssertionError(f"native {op} {dtype} differs from numpy_ref")
+            walls = {}
+            for label, fn, reps in (("native_ms", ours, 5), ("numpy_ms", theirs, 1)):
+                samples = []
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    fn(*args)
+                    samples.append((time.perf_counter() - t0) * 1e3)
+                walls[label] = statistics.median(samples)
+            walls["speedup"] = walls["numpy_ms"] / walls["native_ms"]
+            row[op] = walls
+        times[dtype] = row
+    emit({"phase": "native", "available": True,
+          "library": os.path.relpath(native.build()), "parts": native.PARTS,
+          "flags": " ".join(native.CXX_FLAGS), "build_seconds": native.last_build_seconds,
+          "times": times})
+    return times
+
+
 # ---------------------------------------------------------------------------
 # timing
 
@@ -1800,7 +2119,12 @@ def group_accumulator_rows(table_path: str, group_path: str) -> list:
 
 def phase_timing(paths: dict, read_launches: dict, encode_state: dict,
                  transposed_state: dict, worst: dict, smi: str, entries: dict,
-                 accumulator: list) -> list:
+                 accumulator: list, rows_out: dict) -> list:
+    entries = {label: timed_entry(fn, 1 if label.startswith("median") else 3)
+               for label, fn in entries.items()}
+    for label, rows in rows_out.items():  # the queries: rows out and rows/s
+        entries[label].update(rows_out=rows,
+                              rows_per_s=rows / (entries[label]["wall_ms"] * 1e-3))
     timed_columns = ["headline_u32_w3", "ffor_u32", "delta_u32", "zdelta_u32"]
     with largest_launches() as seen:
         for column in timed_columns:
@@ -1847,8 +2171,7 @@ def phase_timing(paths: dict, read_launches: dict, encode_state: dict,
         encodes[column] = wall_and_busy(encode, 1 if column in ("rle_u32", "dict_u32") else 3)
         encodes[column].update(values=values.numel(), how=how)
     emit({"phase": "timing", "card": smi, "reads": reads, "encodes": encodes,
-          "entries": {label: timed_entry(fn, 1 if label.startswith("median") else 3)
-                      for label, fn in entries.items()},
+          "entries": entries,
           "group_accumulator": accumulator,
           "host_round_trips": host_encode_costs(dev),
           "orig_kernels_by_dtype": dtype_rows(np.random.default_rng(SEED + 2)),
@@ -1857,9 +2180,9 @@ def phase_timing(paths: dict, read_launches: dict, encode_state: dict,
     return rows
 
 
-def slice_entries(alp_state, table, files, read_paths, groups) -> dict:
+def slice_entries(alp_state, table, files, read_paths, groups, queries) -> dict:
     """label -> callable (ending in a synchronise) of every entry of the float,
-    table, multi-file, scan and aggregate paths that the timing phase
+    table, multi-file, scan, aggregate and query paths that the timing phase
     measures."""
     tpath, gpath = table["path"], groups["path"]
     all_files = files["shards"] + files["others"]
@@ -1919,6 +2242,8 @@ def slice_entries(alp_state, table, files, read_paths, groups) -> dict:
         "top_k[price]": synced(lambda: analytics.top_k(tpath, "price", k=100)),
         "median[price]": synced(lambda: analytics.median(tpath, "price")),
     })
+    entries.update({label: synced(lambda call=call: call(None))
+                    for label, call in queries["calls"].items()})
     return entries
 
 
@@ -1932,6 +2257,7 @@ def main() -> int:
     info = phase_device()
     phase_build()
     worst = phase_kernels(rng)
+    phase_native(np.random.default_rng(SEED + 9))
     columns = make_columns(rng, 1)
     with tempfile.TemporaryDirectory(prefix="fastlanes_smoke_") as tmp:
         # every path is driven with the launch counts set to 0 just before it
@@ -1969,14 +2295,17 @@ def main() -> int:
                "undelta_pack_orig"))
         groups = drive("aggregate", lambda: phase_aggregate(table, tmp, 1),
                        ("unpack", "unfor_pack", "undelta_pack", "undelta_pack_orig"))
+        queries = drive("query", lambda: phase_query(table, groups, tmp),
+                        ("unpack", "unfor_pack", "undelta_pack_orig"))
         del columns
         files.pop("shard_values")
-        entries = slice_entries(alp_state, table, files, read_state["paths"], groups)
+        entries = slice_entries(alp_state, table, files, read_state["paths"], groups, queries)
         table.pop("columns")
         groups.pop("columns")
         accumulator = group_accumulator_rows(table["path"], groups["path"])
         rows = phase_timing(read_state["paths"], read_state["launches"], encode_state,
-                            transposed_state, worst, info["nvidia_smi"], entries, accumulator)
+                            transposed_state, worst, info["nvidia_smi"], entries, accumulator,
+                            queries["rows_out"])
         if [row["name"] for row in rows] != list(KERNELS):
             raise AssertionError(f"kernel rows: {[row['name'] for row in rows]}")
     for row in rows:

@@ -24,7 +24,8 @@ Layer map (same module names as fastlanes_tpu):
   fio_device device-side FLT reads
   analytics  scans and aggregations over compressed columns (scan_column,
              scan_table, count_where, scan_where, scan_where_multi,
-             group_stats, distinct, value_counts, top_k, quantile, median)
+             group_stats, distinct, value_counts, top_k, quantile, median,
+             select, join)
   convert    array forms of the JAX package <-> tensors of the port
 """
 
@@ -46,7 +47,7 @@ __all__ = [
     "read_files_device", "iter_files_device", "read_column_device",
     "scan_column", "scan_table", "count_where", "scan_where",
     "scan_where_multi", "group_stats", "distinct", "value_counts", "top_k",
-    "quantile", "median", "from_reference", "to_reference", "__version__",
+    "quantile", "median", "select", "join", "from_reference", "to_reference", "__version__",
 ]
 
 
@@ -74,7 +75,7 @@ _API_HOME = {
     **{n: "analytics" for n in (
         "scan_column", "scan_table", "count_where", "scan_where",
         "scan_where_multi", "group_stats", "distinct", "value_counts", "top_k",
-        "quantile", "median")},
+        "quantile", "median", "select", "join")},
     **{n: "convert" for n in ("from_reference", "to_reference")},
 }
 

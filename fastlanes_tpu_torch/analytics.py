@@ -6,9 +6,9 @@ macros.rs:5-9). This module is the consumer of a device read in the port:
 reductions, filtered counts, GROUP BY, top-k and exact quantiles over an FLT
 file or a table column, decoded by the CUDA kernels (kernels/cuda_codecs.py)
 run by run and reduced with plain torch, with only a handful of numbers per
-run or per call leaving the card. It is the port of fastlanes_tpu/analytics.py
-except `select` and `join`, which are not ported yet and whose names are
-absent here.
+run or per call leaving the card, and the row-returning queries (`select`,
+`join`), where only the chosen rows leave it. It is the port of
+fastlanes_tpu/analytics.py.
 
     from fastlanes_tpu_torch import analytics
     stats = analytics.scan_column("col.flt")             # sum/min/max/count
@@ -24,6 +24,10 @@ absent here.
     best = analytics.top_k("table.flt", "price", k=10)   # ORDER BY .. LIMIT
     values = analytics.distinct("table.flt", "cur")      # host only
     p99 = analytics.quantile("table.flt", "price", 0.99) # exact
+    rows = analytics.select("table.flt", ["qty", "cur"],  # WHERE .. ORDER BY
+                            preds=[("qty", "gt", 50)], order_by="price",
+                            desc=True, limit=10)
+    rows = analytics.join("fact.flt", "dim.flt", on="sku")  # dimension join
 
 Every entry that touches the device takes `device=None`: the GPU,
 RuntimeError without one; `device="cpu"` runs the plain versions of the
@@ -54,7 +58,9 @@ no 64-bit integers, this one uses int64 wherever the answer is identical:
 `HOST_FETCHES` counts the device-to-host fetches (each one a
 synchronisation): one per decoded run in a scan, a count or a top-k, one per
 lockstep window in scan_where_multi, one per call in group_stats and
-value_counts.
+value_counts, and in select and join two per lockstep window that has
+matching rows (the row count or the top-k candidates, then every projected
+column in one copy).
 """
 
 from __future__ import annotations
@@ -1708,3 +1714,529 @@ def quantile(path, column: Optional[str] = None, q=0.5, device=None):
 def median(path, column: Optional[str] = None, device=None):
     """Exact median (see quantile)."""
     return quantile(path, column=column, q=0.5, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Row materialisation: select (projection + WHERE, ORDER BY ... LIMIT) and the
+# dimension join. The predicates, the per-window top-k and the key match run
+# on the device; only the chosen rows cross to the host, gathered there by
+# index_select on the raw bits of each decoded part. Host fetches per lockstep
+# window: one for the row count (`torch.nonzero`), or in a top-k one for the
+# window's candidates, and one for the values of every projected column (with
+# validity masks, a join's right-row indices) in a single copy.
+
+
+def _logical_vt(col_meta: dict):
+    """The column's logical vtype when it rides integer storage (bool /
+    datetime64[*] / timedelta64[*]), else None."""
+    vt = col_meta.get("vtype")
+    if vt == "bool" or (vt or "").startswith(("datetime64", "timedelta64")):
+        return vt
+    return None
+
+
+_NP_OF_TORCH = {torch.uint8: np.uint8, torch.uint16: np.uint16, torch.uint32: np.uint32,
+                torch.uint64: np.uint64, torch.int8: np.int8, torch.int16: np.int16,
+                torch.int32: np.int32, torch.int64: np.int64, torch.float32: np.float32,
+                torch.float64: np.float64, torch.bool: np.bool_}
+
+
+def _rows_of(mask) -> torch.Tensor:
+    """Device row indices where `mask` holds. `torch.nonzero` sizes its
+    output on the host: one fetch (the count)."""
+    global HOST_FETCHES
+    HOST_FETCHES += 1
+    return torch.nonzero(mask).flatten()
+
+
+def _fetch_many(tensors) -> list:
+    """1-D device tensors -> numpy arrays of the same dtypes in ONE copy: their
+    bytes go to the host concatenated and are split there."""
+    parts = [t.contiguous().view(torch.uint8) for t in tensors]
+    flat = _fetch_np(torch.cat(parts))
+    out, at = [], 0
+    for t, p in zip(tensors, parts):
+        out.append(flat[at:at + p.numel()].view(_NP_OF_TORCH[t.dtype]))
+        at += p.numel()
+    return out
+
+
+def _raw_flat(blocks) -> torch.Tensor:
+    """A decoded part's flat values as a signed integer tensor of the same
+    bits: gathers move bits, and torch has few ops on unsigned dtypes on the
+    CPU."""
+    arr = blocks.reshape(-1)
+    return arr.view(_INT_OF_BITS[arr.element_size() * 8])
+
+
+def _host_values(raw: np.ndarray, tdtype, transform_signed, str_dict, logical):
+    """Fetched raw bits of a column (the signed view of the decoded dtype
+    `tdtype`) -> host values in the user-facing domain, the JAX package's
+    dtypes: unsigned and signed ints as stored, 64-bit ints as uint64 or, for
+    a signed transform, int64, temporal columns in their datetime64[*] /
+    timedelta64[*] dtype, bools, floats bit for bit, strings through the
+    file's dictionary."""
+    np_dt = np.dtype(_NP_OF_TORCH[tdtype])
+    if np_dt.kind in "iu" and np_dt.itemsize == 8:
+        wide = raw.view(np.int64 if transform_signed else np.uint64)
+        return wide.view(np.dtype(logical)) if logical is not None else wide
+    vals = raw.view(np_dt)
+    if str_dict is not None:
+        return str_dict[vals.astype(np.int64)]
+    if logical == "bool":
+        return vals.astype(bool)
+    return vals
+
+
+def _gather_columns(rows, columns, meta, idx, n: int, extra=()) -> tuple:
+    """Rows `idx` (a device index tensor of `n` rows) of each column of one
+    lockstep window -> ({name: host values}, host arrays of the `extra`
+    device tensors gathered at `idx`) in ONE fetch (none when n is 0).
+    Nullable columns come back as masked arrays, as in the JAX package."""
+    order = list(dict.fromkeys(columns))
+    gathered = []
+    for name in order:
+        blocks, _cdtype, _vtype, _valid, vmask = rows[name]
+        gathered.append(_raw_flat(blocks).index_select(0, idx))
+        if vmask is not None:
+            gathered.append(vmask.index_select(0, idx))
+    gathered += [t.index_select(0, idx) for t in extra]
+    host = _fetch_many(gathered) if n and gathered else [
+        np.empty(0, _NP_OF_TORCH[t.dtype]) for t in gathered]
+    out, at = {}, 0
+    for name in order:
+        blocks, _cdtype, _vtype, _valid, vmask = rows[name]
+        vals = _host_values(host[at], blocks.dtype, *meta[name])
+        at += 1
+        if vmask is not None:
+            vals = np.ma.MaskedArray(vals, mask=~host[at])
+            at += 1
+        out[name] = vals
+    return out, host[at:]
+
+
+def _concat_parts(parts):
+    if not parts:
+        return np.empty(0)
+    if any(isinstance(p, np.ma.MaskedArray) for p in parts):
+        return np.ma.concatenate(parts)
+    return np.concatenate(parts)
+
+
+def _column_meta(path: str, header: dict, names) -> dict:
+    """name -> (signed transform?, string dictionary, logical vtype)."""
+    from . import fio_table
+
+    meta = {}
+    for n in names:
+        cm = fio_table._col_meta(header, n)
+        meta[n] = (cm.get("transform") in ("zigzag", "viewu"), _str_dict_of(path, n),
+                   _logical_vt(cm))
+    return meta
+
+
+def select(path, columns=None, preds=(), limit: Optional[int] = None, device=None,
+           order_by: Optional[str] = None, desc: bool = False) -> dict:
+    """Materialise the rows matching every predicate: projection and
+    selection pushdown. Only the requested columns decode, the predicates
+    are evaluated on the device, and only matching rows reach the host.
+    `preds` is a list of (column, op, value); `columns` defaults to every
+    table column. Returns {name: numpy array} with nullable columns as masked
+    arrays and string columns as unicode arrays, in the JAX package's dtypes.
+
+    `order_by` sorts the result by that column (`desc` for descending; rows
+    whose order key is null sort last, ties keep row order, reversed under
+    DESC). With `limit` it is an ORDER BY ... LIMIT pushdown: every lockstep
+    window reduces to k candidate rows on the device and only those reach
+    the host; equal keys come out lowest row first for keys of up to 32
+    bits and highest row first for 64-bit keys, the JAX package's order. A
+    row that fails a predicate or has a null order key is never a candidate
+    (there the JAX package can return one; ROADMAP.md, Queue 3). Without
+    `order_by`, `limit` stops the file walk early, in file order."""
+    from . import fio_table
+
+    device = eng.resolve_device(device)
+    paths = _paths(path)
+    if len(paths) > 1:
+        return _select_dataset(paths, columns, list(preds), limit, device, order_by, desc)
+    path = paths[0]
+    with open(path, "rb") as f:
+        if not f.read(8).startswith(b"FLTTAB1"):
+            raise ValueError("select() takes an FLTTAB table file")
+    header = fio_table.read_table_header(path)
+    if columns is None:
+        columns = list(header["columns"])
+    preds = _normalize_preds(path, list(preds))
+    names = list(dict.fromkeys(
+        [p[0] for p in preds] + list(columns) + ([order_by] if order_by is not None else [])))
+    meta = _column_meta(path, header, names)
+    keep = _zone_keep(path, preds, names=names)
+    if order_by is not None and limit is not None:
+        return _select_topk(path, columns, preds, limit, device, order_by, desc, names,
+                            meta, keep)
+
+    fetched = list(columns) + ([order_by] if order_by is not None else [])
+    out = {n: [] for n in columns}
+    okeys = []  # order_by without limit: carry the key column, sort after
+    taken = 0
+    for rows in _lockstep_chunks(path, names, device, keep=keep):
+        valid = rows[names[0]][3]
+        if valid == 0:
+            continue
+        mask = _chunk_row_mask(rows, preds)
+        if mask is None:
+            idx = torch.arange(valid, device=device)
+        else:
+            idx = _rows_of(mask[:valid])
+        if order_by is None and limit is not None and taken + idx.numel() > limit:
+            idx = idx[:limit - taken]
+        n = idx.numel()
+        taken += n
+        vals, _ = _gather_columns(rows, fetched, meta, idx, n)
+        for c in columns:
+            out[c].append(vals[c])
+        if order_by is not None:
+            okeys.append(vals[order_by])
+        if order_by is None and limit is not None and taken >= limit:
+            break
+    result = {n: _concat_parts(out[n]) for n in columns}
+    if order_by is not None and okeys:
+        order = _order_of(_concat_parts(okeys), desc)
+        result = {n: result[n][order] for n in result}
+    return result
+
+
+def _order_of(keys, desc: bool) -> np.ndarray:
+    """Sort order of an order-by column: stable, null keys last, u64 keys
+    with the scans' int64 semantics."""
+    null = (np.ma.getmaskarray(keys) if isinstance(keys, np.ma.MaskedArray)
+            else np.zeros(len(keys), bool))
+    kd = np.asarray(np.ma.getdata(keys))
+    if kd.dtype == np.uint64:
+        kd = kd.view(np.int64)
+    pos = np.arange(len(kd))
+    vi = pos[~null][np.argsort(kd[~null], kind="stable")]
+    if desc:
+        vi = vi[::-1]
+    return np.concatenate([vi, pos[null]]).astype(np.int64)
+
+
+def _concat_row_dicts(parts, names) -> dict:
+    """Concatenate per-file select() results column-wise (mask-aware)."""
+    return {n: _concat_parts([p[n] for p in parts if n in p and len(p[n])])
+            for n in names}
+
+
+def _select_dataset(paths, columns, preds, limit, device, order_by, desc):
+    """select() over a sharded dataset: per-file pushdown (each file owns its
+    dictionaries), then a column-wise merge; ORDER BY re-sorts the merged
+    candidates on the host and trims to the limit."""
+    from . import fio_table
+
+    if columns is None:
+        columns = list(fio_table.read_table_header(paths[0])["columns"])
+    if order_by is None:
+        parts = []
+        remaining = limit
+        for p in paths:
+            rows = select(p, columns, preds, remaining, device)
+            parts.append(rows)
+            if remaining is not None:
+                remaining -= len(rows[columns[0]]) if columns else 0
+                if remaining <= 0:
+                    break
+        return _concat_row_dicts(parts, columns)
+    inner = list(dict.fromkeys(list(columns) + [order_by]))
+    parts = [select(p, inner, preds, limit, device,
+                    order_by if limit is not None else None, desc) for p in paths]
+    combined = _concat_row_dicts(parts, inner)
+    if len(combined[order_by]):
+        order = _order_of(combined[order_by], desc)
+        combined = {n: v[order] for n, v in combined.items()}
+    if limit is not None:
+        combined = {n: v[:limit] for n, v in combined.items()}
+    if order_by not in columns:
+        combined.pop(order_by)
+    return combined
+
+
+def _top_rows(flat: _Flat, ok, k: int, largest: bool) -> torch.Tensor:
+    """The best min(k, n_ok) rows of one decoded window by the order key, as
+    ONE int64 tensor [n_ok, rows (kk), keys (kk)], kk = min(k, len(flat)):
+    the first min(k, n_ok) rows are the candidates (unordered, the rest -1),
+    their keys beside them. Keys are signed and ordered like the values (the
+    int key; the IEEE total-order key of a float). Rows that `ok` masks are
+    never candidates. Among rows whose key equals the k-th best, the lowest
+    rows are taken for keys of up to 32 bits and the highest for 64-bit keys,
+    the tie rule of the JAX package's per-chunk top-k."""
+    key = flat.key if flat.kind == "int" else _total_order_key(flat.key, flat.kind)
+    key = key.to(torch.int64)
+    n = key.shape[0]
+    kk = min(k, n)
+    if ok is None:
+        ok = torch.ones(n, dtype=torch.bool, device=key.device)
+    worst = _imin(torch.int64) if largest else _imax(torch.int64)
+    top = torch.topk(torch.where(ok, key, worst), kk, largest=largest, sorted=True).values
+    n_ok = ok.sum(dtype=torch.int64)
+    take = n_ok.clamp(max=kk)
+    thr = top[(take - 1).clamp(min=0)]
+    better = ok & ((key > thr) if largest else (key < thr))
+    equal = ok & (key == thr)
+    if flat.bits == 64:  # rank the ties from the last row
+        rank = equal.flip(0).cumsum(0, dtype=torch.int64).flip(0)
+    else:
+        rank = equal.cumsum(0, dtype=torch.int64)
+    chosen = better | (equal & (rank <= take - better.sum(dtype=torch.int64)))
+    rows = torch.topk(torch.where(chosen, torch.arange(n, device=key.device), -1), kk).values
+    return torch.cat([n_ok.reshape(1), rows, key[rows.clamp(min=0)]])
+
+
+def _select_topk(path, columns, preds, k, device, order_by, desc, names, meta, keep=None):
+    """ORDER BY order_by [DESC] LIMIT k pushdown: each lockstep window
+    reduces to k candidate rows on the device (_top_rows) and only the
+    candidates' projected values reach the host merge. Zone-map bounds on
+    the order column visit windows best bound first, in batches growing x4,
+    and stop once the k-th candidate beats every remaining window."""
+    store = []    # per contributing window: {col: gathered values}
+    entries = []  # (key, window index, store seq, emit position)
+    bits = None   # the order key's width, once a row ranked
+
+    def visit(keep_w, widx_of_part):
+        nonlocal bits
+        part_i = 0
+        for rows in _lockstep_chunks(path, names, device, keep=keep_w):
+            widx = widx_of_part[part_i]
+            part_i += 1
+            valid = rows[names[0]][3]
+            if valid == 0:
+                continue
+            mask = _chunk_row_mask(rows, preds)
+            oblocks, ocdt, ovt, _ov, ovmask = rows[order_by]
+            ok = None if mask is None else mask[:valid]
+            if ovmask is not None:  # null order keys sort out of a top-k
+                ok = ovmask[:valid] if ok is None else ok & ovmask[:valid]
+            oflat = _flatten_logical(oblocks, ocdt, ovt).head(valid)
+            got = _fetch(_top_rows(oflat, ok, k, desc))
+            kk = (len(got) - 1) // 2
+            take = min(got[0], kk)
+            if take == 0:
+                continue
+            bits = oflat.bits
+            tie = -1 if bits == 64 else 1  # ties: highest row first for 64-bit keys
+            cands = sorted(zip(got[1 + kk:1 + kk + take], got[1:1 + take]),
+                           key=lambda c: (-c[0] if desc else c[0], tie * c[1]))
+            idx = torch.tensor([r for _key, r in cands], dtype=torch.int64, device=device)
+            chunk_vals, _ = _gather_columns(rows, columns, meta, idx, take)
+            seq = len(store)
+            store.append(chunk_vals)
+            entries.extend((key, widx, seq, j) for j, (key, _r) in enumerate(cands))
+
+    chunks, ocdt_l, otr_l, ovt_l, _nv, _bo, _nm = _column_layout(path, order_by)
+    n_chunks = len(chunks)
+    win = _LOCKSTEP_WINDOW
+    windows = list(range(0, n_chunks, win))
+    if all("stats" not in c for c in chunks):
+        # no zone maps: one sequential pass; parts only come from windows the
+        # predicates' keep leaves alive
+        yielding = [wi for wi, start in enumerate(windows)
+                    if keep is None or any(keep[c] for c in range(start,
+                                                                  min(start + win, n_chunks)))]
+        visit(keep, yielding)
+    else:
+        zkind, zbits = zonemaps.topk_kind(ocdt_l, ovt_l, otr_l)
+        wb = {}
+        for wi, start in enumerate(windows):
+            bs = [zonemaps.topk_bound(chunks[c], zkind, zbits, desc)
+                  for c in range(start, min(start + win, n_chunks))
+                  if keep is None or keep[c]]
+            bs = [_bound_int(b) for b in bs if b is not None]
+            if bs:
+                wb[wi] = max(bs) if desc else min(bs)
+        order = sorted(wb, key=lambda wi: wb[wi], reverse=desc)
+        pos, batch = 0, 1
+        while pos < len(order):
+            if len(entries) >= k:
+                # the bounds are the JAX package's UNSIGNED keys: a signed key
+                # maps onto them by adding 2^(bits-1) (the flipped top bit)
+                kth = sorted((e[0] for e in entries), reverse=desc)[k - 1] + (1 << (bits - 1))
+                b = wb[order[pos]]
+                if (b < kth) if desc else (b > kth):
+                    break
+            take = sorted(order[pos:pos + batch])
+            pos += batch
+            batch *= 4
+            kl = [False] * n_chunks
+            for wi in take:
+                for c in range(windows[wi], min(windows[wi] + win, n_chunks)):
+                    kl[c] = keep is None or keep[c]
+            # every taken window yields exactly one part iff any of its chunks
+            # stays kept (wb membership guarantees it)
+            visit(kl, take)
+    # window order then emit order, THEN a stable key sort: equal keys resolve
+    # exactly as the sequential walk did
+    entries.sort(key=lambda e: (e[1], e[3]))
+    entries.sort(key=lambda e: e[0], reverse=desc)
+    entries = [(seq, j) for _key, _w, seq, j in entries[:k]]
+    result = {}
+    for n in columns:
+        if not entries:
+            result[n] = np.empty(0)
+            continue
+        data = [np.ma.getdata(store[c][n])[j] for c, j in entries]
+        msk = [bool(np.ma.getmaskarray(store[c][n])[j]) for c, j in entries]
+        dt = np.ma.getdata(store[entries[0][0]][n]).dtype
+        # unicode widths differ per window: numpy takes the largest
+        arr = np.asarray(data) if dt.kind == "U" else np.asarray(data, dt)
+        if any(isinstance(store[c][n], np.ma.MaskedArray) for c, _j in entries):
+            result[n] = np.ma.MaskedArray(arr, mask=np.asarray(msk))
+        else:
+            result[n] = arr
+    return result
+
+
+def _join_match(keys, right_sorted):
+    """(row index into the sorted right keys, matched?) per left key; both
+    int64 (torch has no uint32 order on the CPU, and a left and a right key
+    of up to 32 bits fit it)."""
+    i = torch.searchsorted(right_sorted, keys).clamp(0, right_sorted.shape[0] - 1)
+    return i, right_sorted[i] == keys
+
+
+def join(left_path, right_path, on: str, columns=None, right_columns=None, preds=(),
+         how: str = "inner", limit: Optional[int] = None, device=None) -> dict:
+    """Dimension join: enrich the (large, streamed) LEFT table with columns
+    of the (small) RIGHT table matched on the `on` key column.
+
+    The right key must be UNIQUE (a dimension table, so no row
+    multiplication); the right side decodes once to the host and is sorted
+    there, the left side streams window by window with `preds` pushed down
+    and the key match evaluated on the device: integer keys by
+    torch.searchsorted against the sorted right keys (both sides int64),
+    string keys by label through a left-code -> right-row table built per
+    left file (each file owns its dictionary), so the match is one device
+    gather. `how`: "inner" drops unmatched left rows, "left" keeps them with
+    masked right values; null keys never match. Key domains: integers of up
+    to 32 bits and strings (64-bit and float keys raise). Right columns whose
+    names collide get a "_right" suffix.
+
+    Returns {name: numpy array} like select()."""
+    from . import fio_table
+
+    if how not in ("inner", "left"):
+        raise ValueError(f"how must be 'inner' or 'left', got {how!r}")
+    device = eng.resolve_device(device)
+    lpaths = _paths(left_path)
+    rheader = fio_table.read_table_header(right_path)
+    if right_columns is None:
+        right_columns = [c for c in rheader["columns"] if c != on]
+    rkeys = fio_table.read_column(right_path, on)
+    if isinstance(rkeys, np.ma.MaskedArray):
+        raise ValueError(f"right key column {on!r} must not contain nulls")
+    rvals = {c: fio_table.read_column(right_path, c) for c in right_columns}
+
+    lheader = fio_table.read_table_header(lpaths[0])
+    if columns is None:
+        columns = list(lheader["columns"])
+    out_names = list(columns) + [(c if c not in columns else f"{c}_right")
+                                 for c in right_columns]
+
+    # sort the right side by key; uniqueness = no duplicate neighbours
+    rkd = None
+    if rkeys.dtype.kind in ("U", "O"):
+        rk = np.asarray(rkeys).astype(np.str_)
+        order = np.argsort(rk, kind="stable")
+        rk_sorted = rk[order]
+        str_key = True
+    else:
+        if rkeys.dtype.itemsize * 8 == 64 or rkeys.dtype.kind == "f":
+            raise ValueError("join keys must be integers <= 32 bits or "
+                             f"strings; {on!r} is {rkeys.dtype}")
+        order = np.argsort(rkeys, kind="stable")
+        rk_sorted = np.asarray(rkeys)[order]
+        str_key = False
+        rkd = torch.from_numpy(rk_sorted.astype(np.int64)).to(device)
+    if rk_sorted.size > 1 and (rk_sorted[1:] == rk_sorted[:-1]).any():
+        raise ValueError(f"right key column {on!r} has duplicates")
+    rvals_sorted = {c: v[order] for c, v in rvals.items()}
+
+    out = {n: [] for n in out_names}
+    taken = 0
+    for p in lpaths:
+        preds_p = _normalize_preds(p, list(preds))
+        names = list(dict.fromkeys([q[0] for q in preds_p] + list(columns) + [on]))
+        col_meta = _column_meta(p, fio_table.read_table_header(p), names)
+        if str_key:
+            ld = _str_dict_of(p, on)
+            if ld is None:
+                raise ValueError(f"left {on!r} is not a string column but the right key is")
+            # left code -> right sorted row (or -1): a host searchsorted of the
+            # left dictionary into the right keys, then ONE device gather per
+            # window does the whole match
+            pos = np.searchsorted(rk_sorted, ld)
+            pos_c = np.clip(pos, 0, max(0, rk_sorted.size - 1))
+            hit = (rk_sorted[pos_c] == ld) if rk_sorted.size else np.zeros(ld.size, bool)
+            tr_dev = torch.from_numpy(np.where(hit, pos_c, -1).astype(np.int64)).to(device)
+        keep = _zone_keep(p, preds_p, names=names)
+        for rows in _lockstep_chunks(p, names, device, keep=keep):
+            valid = rows[names[0]][3]
+            if valid == 0:
+                continue
+            mask = _chunk_row_mask(rows, preds_p)
+            kblocks, kdt, kvt, _kv, kmask = rows[on]
+            kflat = _flatten_logical(kblocks, kdt, kvt)
+            if kflat.kind != "int" or kflat.bits == 64:
+                raise ValueError("join keys must be integers <= 32 bits or strings")
+            lkey = kflat.key.to(torch.int64) + kflat.offset
+            if str_key:
+                ridx = tr_dev[lkey]
+                matched = ridx >= 0
+            elif rk_sorted.size == 0:
+                ridx = torch.zeros_like(lkey)
+                matched = torch.zeros(lkey.shape, dtype=torch.bool, device=lkey.device)
+            else:
+                # the JAX package compares the decoded key's dtype with the
+                # right key's: the logical numpy dtypes, not the int64 forms
+                ldt = np.dtype(_NP_OF_TORCH[kblocks.dtype])
+                if ldt != rk_sorted.dtype:
+                    raise ValueError(f"join key dtypes differ ({ldt} vs {rk_sorted.dtype}); "
+                                     "store both sides as one dtype")
+                ridx, matched = _join_match(lkey, rkd)
+            if kmask is not None:  # null keys never match
+                matched = matched & kmask
+            if how == "inner":
+                keep_rows = matched if mask is None else matched & mask
+            else:
+                keep_rows = mask
+            if keep_rows is None:
+                idx = torch.arange(valid, device=device)
+            else:
+                idx = _rows_of(keep_rows[:valid])
+            if limit is not None and taken + idx.numel() > limit:
+                idx = idx[:limit - taken]
+            n = idx.numel()
+            taken += n
+            # left columns, the right row and the match flag: one fetch
+            vals, (ridx_np, ok_np) = _gather_columns(rows, columns, col_meta, idx, n,
+                                                     extra=(ridx, matched))
+            for c in columns:
+                out[c].append(vals[c])
+            # right columns: host gather by matched sorted-row index
+            safe = np.where(ok_np, ridx_np, 0).astype(np.int64)
+            for c, oname in zip(right_columns, out_names[len(columns):]):
+                if rvals_sorted[c].size == 0:  # empty right: all masked
+                    rv = np.ma.masked_all(len(safe), dtype=np.ma.getdata(rvals_sorted[c]).dtype)
+                else:
+                    rv = rvals_sorted[c][safe]
+                if how == "left":
+                    m = ~ok_np
+                    if isinstance(rv, np.ma.MaskedArray):
+                        rv = np.ma.MaskedArray(np.ma.getdata(rv),
+                                               mask=np.ma.getmaskarray(rv) | m)
+                    elif m.any():
+                        rv = np.ma.MaskedArray(rv, mask=m)
+                out[oname].append(rv)
+            if limit is not None and taken >= limit:
+                break
+        if limit is not None and taken >= limit:
+            break
+    return {n: _concat_parts(out[n]) for n in out_names}

@@ -2,8 +2,9 @@
 
 The host-runtime IO layer of the framework (the role Vortex plays for the
 Rust crate): a self-describing container whose payload bytes per block are
-the exact FastLanes wire format, written and read by the NumPy host codec
-(ref/numpy_ref.py), with block-range random access (only the covering chunks
+the exact FastLanes wire format, written/read at SIMD speed by the C++ host
+codec (native/, where g++ builds it; else the NumPy host codec,
+ref/numpy_ref.py), with block-range random access (only the covering chunks
 decode) and element random access via unpack_single.
 
 The byte format is the JAX package's (fastlanes_tpu/fio.py): this module is
@@ -25,6 +26,7 @@ import numpy as np
 
 from .core import layout
 from . import alp as alp_mod
+from . import native
 from . import transforms
 from . import zonemaps
 from .ref import numpy_ref as npref
@@ -174,12 +176,14 @@ def read_chunk_range(f, chunks, base_off: int, chunk_blocks: int,
     return np.concatenate(out, axis=0)
 
 
-def _delta_parts(values: np.ndarray, dtype: str):
+def _delta_parts(values: np.ndarray, dtype: str, use_native: bool):
     """transposed, per-block row-0 base (index(0, lane) == lane), deltas."""
     nl = layout.lanes(dtype)
-    transposed = npref.transpose(values, dtype)
+    transposed = (native.transpose(values, dtype) if use_native
+                  else npref.transpose(values, dtype))
     base = np.ascontiguousarray(transposed[:, :nl])
-    deltas = npref.delta(transposed, base, dtype)
+    deltas = (native.delta(transposed, base, dtype) if use_native
+              else npref.delta(transposed, base, dtype))
     return transposed, base, deltas
 
 
@@ -236,12 +240,13 @@ def choose_signed_transform(arr: np.ndarray, chunk_blocks: int = 1024):
     wire = layout.canon_dtype(u_dt)
     viewed = np.ascontiguousarray(arr).view(u_dt)
     zigzagged = transforms.zigzag_encode_np(arr)
+    use_native = native.available()
     costs = {}
     for name, cand in (("viewu", viewed), ("zigzag", zigzagged)):
         blocks, _ = pad_to_blocks(cand, wire)
         probe = blocks[:chunk_blocks]
         costs[name] = min(_auto_candidates(
-            probe, wire, _delta_parts(probe, wire)).values())
+            probe, wire, _delta_parts(probe, wire, use_native)).values())
     best = min(costs, key=costs.get)
     return (viewed if best == "viewu" else zigzagged), best
 
@@ -260,10 +265,11 @@ def apply_inverse_transform(blocks: np.ndarray, transform) -> np.ndarray:
 def _encode_chunk(values: np.ndarray, dtype: str, codec: str):
     """Encode one chunk; returns (meta, payload_bytes)."""
     t = layout.bit_width(dtype)
+    use_native = native.available()
     delta_parts = None
 
     if codec == "auto":
-        delta_parts = _delta_parts(values, dtype)
+        delta_parts = _delta_parts(values, dtype, use_native)
         cands = _auto_candidates(values, dtype, delta_parts)
         codec = min(cands, key=lambda k: (cands[k], k != "ffor"))
 
@@ -275,31 +281,35 @@ def _encode_chunk(values: np.ndarray, dtype: str, codec: str):
 
     if codec == "bitpack":
         w = min(t, _bits_needed_arr(values))
-        payload = npref.pack(values, w, dtype)
+        payload = (native.pack(values, w, dtype) if use_native
+                   else npref.pack(values, w, dtype))
         return {"codec": codec, "width": w}, payload.tobytes()
 
     if codec == "ffor":
         ref_val = int(values.min()) if values.size else 0
         spread = ((int(values.max()) - ref_val) % (1 << t)) if values.size else 0
         w = min(t, int(spread).bit_length())
-        payload = npref.for_pack(values, ref_val, w, dtype)
+        payload = (native.for_pack(values, ref_val, w, dtype) if use_native
+                   else npref.for_pack(values, ref_val, w, dtype))
         return {"codec": codec, "width": w, "reference": ref_val}, payload.tobytes()
 
     if codec == "delta":
         if delta_parts is None:
-            delta_parts = _delta_parts(values, dtype)
+            delta_parts = _delta_parts(values, dtype, use_native)
         _, base, deltas = delta_parts
         w = min(t, _bits_needed_arr(deltas))
-        packed = npref.pack(deltas, w, dtype)
+        packed = (native.pack(deltas, w, dtype) if use_native
+                  else npref.pack(deltas, w, dtype))
         return {"codec": codec, "width": w}, base.tobytes() + packed.tobytes()
 
     if codec == "zdelta":
         if delta_parts is None:
-            delta_parts = _delta_parts(values, dtype)
+            delta_parts = _delta_parts(values, dtype, use_native)
         _, base, deltas = delta_parts
         zz = _zigzag_deltas(deltas)
         w = min(t, _bits_needed_arr(zz))
-        packed = npref.pack(zz, w, dtype)
+        packed = (native.pack(zz, w, dtype) if use_native
+                  else npref.pack(zz, w, dtype))
         return {"codec": codec, "width": w}, base.tobytes() + packed.tobytes()
 
     raise ValueError(f"unknown codec {codec!r}")
@@ -322,13 +332,15 @@ def _encode_chunk_dict(values: np.ndarray, dtype: str):
     payload = sorted dictionary (n_dict elements of the column dtype) ||
     packed u16 codes (standard bitpack stream, W = bits for n_dict-1).
     Decode = one u16 unpack + one gather regardless of column dtype."""
+    use_native = native.available()
     dictionary, codes = _dict_parts(values)
     if dictionary.size > _DICT_MAX:
         raise ValueError(
             f"dict codec: {dictionary.size} distinct values exceed the "
             f"{_DICT_MAX}-entry per-chunk dictionary (u16 code stream)")
     w = int(max(0, int(dictionary.size) - 1).bit_length())
-    packed = npref.pack(codes, w, "u16")
+    packed = (native.pack(codes, w, "u16") if use_native
+              else npref.pack(codes, w, "u16"))
     payload = dictionary.tobytes() + packed.tobytes()
     meta = {"codec": "dict", "width": w, "n_dict": int(dictionary.size)}
     return meta, payload
@@ -352,7 +364,9 @@ def _split_dict_payload(meta: dict, raw: bytes, n_blocks: int, dtype: str):
 
 def _decode_chunk_dict(meta: dict, raw: bytes, n_blocks: int, dtype: str):
     dictionary, packed = _split_dict_payload(meta, raw, n_blocks, dtype)
-    codes = npref.unpack(packed, meta["width"], "u16")
+    use_native = native.available()
+    codes = (native.unpack(packed, meta["width"], "u16") if use_native
+             else npref.unpack(packed, meta["width"], "u16"))
     if codes.size and int(codes.max()) >= meta["n_dict"]:
         raise ValueError("corrupt dict chunk: code beyond dictionary")
     return dictionary[codes.astype(np.int64)]
@@ -376,14 +390,18 @@ def _encode_chunk_rle(values: np.ndarray, dtype: str):
     """RLE chunk: counts(u16) || per-block u16 idx base (B*64) || packed
     idx deltas (u16, W=1) || raw run values. The index stream is a u16
     FastLanes delta stream regardless of column dtype (1024 < 2^16)."""
+    use_native = native.available()
     counts, run_values, idx = _rle_parts(values)
     if int(counts.max()) > 0xFFFF:
         raise ValueError("impossible: more runs than block positions")
-    transposed = npref.transpose(idx, "u16")
+    transposed = (native.transpose(idx, "u16") if use_native
+                  else npref.transpose(idx, "u16"))
     base = np.ascontiguousarray(transposed[:, :64])
-    deltas = npref.delta(transposed, base, "u16")
+    deltas = (native.delta(transposed, base, "u16") if use_native
+              else npref.delta(transposed, base, "u16"))
     assert int(deltas.max()) <= 1
-    packed_idx = npref.pack(deltas, 1, "u16")
+    packed_idx = (native.pack(deltas, 1, "u16") if use_native
+                  else npref.pack(deltas, 1, "u16"))
     payload = (counts.astype("<u2").tobytes() + base.tobytes()
                + packed_idx.tobytes() + run_values.tobytes())
     meta = {"codec": "rle", "width": 1, "n_runs": int(counts.sum())}
@@ -420,8 +438,11 @@ def _rle_gather(counts, run_values, idx):
 def _decode_chunk_rle(meta: dict, raw: bytes, n_blocks: int, dtype: str):
     counts, base, packed_idx, run_values = _split_rle_payload(
         meta, raw, n_blocks, dtype)
-    transposed = npref.undelta_pack(packed_idx, base, 1, "u16")
-    idx = npref.untranspose(transposed, "u16")
+    use_native = native.available()
+    transposed = (native.undelta_pack(packed_idx, base, 1, "u16") if use_native
+                  else npref.undelta_pack(packed_idx, base, 1, "u16"))
+    idx = (native.untranspose(transposed, "u16") if use_native
+           else npref.untranspose(transposed, "u16"))
     return _rle_gather(counts, run_values, idx)
 
 
@@ -431,7 +452,9 @@ def _encode_chunk_alp(values_f: np.ndarray, wire_dtype: str):
     Payload: packed || exc_pos(u32 LE) || exc_val(value dtype LE)."""
     enc = alp_mod.encode_np(values_f)
     w = enc["width"]
-    packed = npref.pack(enc["ints"], w, wire_dtype)
+    use_native = native.available()
+    packed = (native.pack(enc["ints"], w, wire_dtype) if use_native
+              else npref.pack(enc["ints"], w, wire_dtype))
     payload = (packed.tobytes() + enc["exc_pos"].astype("<u4").tobytes()
                + enc["exc_val"].tobytes())
     meta = {"codec": "alp", "width": w, "reference": enc["reference"],
@@ -458,7 +481,9 @@ def _decode_chunk_alp(meta: dict, raw: bytes, n_blocks: int, dtype: str,
                       np_float) -> np.ndarray:
     packed, exc_pos, exc_val = _split_alp_payload(meta, raw, n_blocks, dtype,
                                                   np_float)
-    shifted = npref.unpack(packed, meta["width"], dtype)
+    use_native = native.available()
+    shifted = (native.unpack(packed, meta["width"], dtype) if use_native
+               else npref.unpack(packed, meta["width"], dtype))
     return alp_mod.decode_np(shifted, meta["e"], meta["f"], meta["reference"],
                              np_float, exc_pos, exc_val)
 
@@ -469,13 +494,16 @@ def _encode_chunk_alprd(values_f: np.ndarray, wire_dtype: str):
     stream, W=idx_width) || exc_pos (u32) || exc_left (u16 when the left
     part is <= 16 bits, u32 for wider lefts — derived from width+vtype,
     see _alprd_exc_left_dtype)."""
+    use_native = native.available()
     enc = alp_mod.rd_encode_np(values_f)
     wr = enc["right_bits"]
     dictionary = enc["dict"]
     wi = max(1, int(len(dictionary) - 1).bit_length())
     rights = enc["rights"].astype(layout.np_dtype(wire_dtype))
-    packed_r = npref.pack(rights, wr, wire_dtype)
-    packed_i = npref.pack(enc["left_idx"], wi, "u16")
+    packed_r = (native.pack(rights, wr, wire_dtype) if use_native
+                else npref.pack(rights, wr, wire_dtype))
+    packed_i = (native.pack(enc["left_idx"], wi, "u16") if use_native
+                else npref.pack(enc["left_idx"], wi, "u16"))
     vbits = 32 if values_f.dtype == np.float32 else 64
     exc_dt = "<u2" if vbits - wr <= 16 else "<u4"
     payload = (packed_r.tobytes() + packed_i.tobytes()
@@ -518,8 +546,11 @@ def _decode_chunk_alprd(meta: dict, raw: bytes, n_blocks: int, dtype: str,
                         np_float) -> np.ndarray:
     packed_r, packed_i, exc_pos, exc_left = _split_alprd_payload(
         meta, raw, n_blocks, dtype)
-    rights = npref.unpack(packed_r, meta["width"], dtype)
-    left_idx = npref.unpack(packed_i, meta["idx_width"], "u16")
+    use_native = native.available()
+    rights = (native.unpack(packed_r, meta["width"], dtype) if use_native
+              else npref.unpack(packed_r, meta["width"], dtype))
+    left_idx = (native.unpack(packed_i, meta["idx_width"], "u16") if use_native
+                else npref.unpack(packed_i, meta["idx_width"], "u16"))
     return alp_mod.rd_decode_np(left_idx, rights,
                                 np.asarray(meta["dict"], np.uint32),
                                 meta["width"], np_float, exc_pos, exc_left)
@@ -552,6 +583,7 @@ def _decode_chunk(meta: dict, raw: bytes, n_blocks: int, dtype: str) -> np.ndarr
     nl = layout.lanes(dtype)
     np_dt = layout.np_dtype(dtype)
     w = meta["width"]
+    use_native = native.available()
     codec = meta["codec"]
 
     if codec == "alp":
@@ -569,24 +601,31 @@ def _decode_chunk(meta: dict, raw: bytes, n_blocks: int, dtype: str) -> np.ndarr
         base_bytes = n_blocks * nl * np_dt.itemsize
         base = np.frombuffer(raw[:base_bytes], np_dt).reshape(n_blocks, nl)
         packed = np.frombuffer(raw[base_bytes:], np_dt).reshape(n_blocks, -1)
-        transposed = npref.undelta_pack(packed, base, w, dtype)
-        return npref.untranspose(transposed, dtype)
+        transposed = (native.undelta_pack(packed, base, w, dtype) if use_native
+                      else npref.undelta_pack(packed, base, w, dtype))
+        return (native.untranspose(transposed, dtype) if use_native
+                else npref.untranspose(transposed, dtype))
 
     if codec == "zdelta":
         base_bytes = n_blocks * nl * np_dt.itemsize
         base = np.frombuffer(raw[:base_bytes], np_dt).reshape(n_blocks, nl)
         packed = np.frombuffer(raw[base_bytes:], np_dt).reshape(n_blocks, -1)
-        zz = npref.unpack(packed, w, dtype)
+        zz = (native.unpack(packed, w, dtype) if use_native
+              else npref.unpack(packed, w, dtype))
         deltas = _unzigzag_deltas(zz)
-        transposed = npref.undelta(deltas, base, dtype)
-        return npref.untranspose(transposed, dtype)
+        transposed = (native.undelta(deltas, base, dtype) if use_native
+                      else npref.undelta(deltas, base, dtype))
+        return (native.untranspose(transposed, dtype) if use_native
+                else npref.untranspose(transposed, dtype))
 
     packed = np.frombuffer(raw, np_dt).reshape(n_blocks, -1)
     if codec == "bitpack":
-        return npref.unpack(packed, w, dtype)
+        return (native.unpack(packed, w, dtype) if use_native
+                else npref.unpack(packed, w, dtype))
     if codec == "ffor":
         ref_val = meta["reference"]
-        return npref.unfor_pack(packed, ref_val, w, dtype)
+        return (native.unfor_pack(packed, ref_val, w, dtype) if use_native
+                else npref.unfor_pack(packed, ref_val, w, dtype))
     raise ValueError(f"unknown codec {codec!r}")
 
 
@@ -772,7 +811,10 @@ def _read_single_alp(path: str, meta: dict, ci: int, cb: int, block: int,
         raw = f.read(plen * np_dt.itemsize)
     packed = np.frombuffer(raw, np_dt).reshape(1, plen)
     idx_arr = np.array([index], dtype=np.int64)
-    shifted = npref.unpack_single(packed, w, idx_arr, dtype)[0, 0]
+    if native.available():
+        shifted = native.unpack_single(packed, w, idx_arr, dtype)[0, 0]
+    else:
+        shifted = npref.unpack_single(packed, w, idx_arr, dtype)[0, 0]
     return alp_mod.decode_np(np.asarray([shifted]), meta["e"], meta["f"],
                              meta["reference"], np_float)[0]
 
@@ -828,7 +870,10 @@ def read_single(path: str, block: int, index: int):
                        + block_in_chunk * plen * 2)
                 packed = np.frombuffer(f.read(plen * 2), np.uint16).reshape(1, plen)
             idx_arr = np.array([index], dtype=np.int64)
-            code = int(npref.unpack_single(packed, w, idx_arr, "u16")[0, 0])
+            if native.available():
+                code = int(native.unpack_single(packed, w, idx_arr, "u16")[0, 0])
+            else:
+                code = int(npref.unpack_single(packed, w, idx_arr, "u16")[0, 0])
         if code >= meta["n_dict"]:
             raise ValueError("corrupt dict chunk: code beyond dictionary")
         with open(path, "rb") as f:
@@ -847,7 +892,10 @@ def read_single(path: str, block: int, index: int):
         raw = f.read(plen * np_dt.itemsize)
     packed = np.frombuffer(raw, np_dt).reshape(1, plen)
     idx_arr = np.array([index], dtype=np.int64)
-    val = npref.unpack_single(packed, w, idx_arr, dtype)[0, 0]
+    if native.available():
+        val = native.unpack_single(packed, w, idx_arr, dtype)[0, 0]
+    else:
+        val = npref.unpack_single(packed, w, idx_arr, dtype)[0, 0]
     if meta["codec"] == "ffor":
         val = np_dt.type(val + np_dt.type(meta["reference"]))
     transform = header.get("transform")

@@ -171,10 +171,8 @@ def test_errors_are_the_reference_errors(table):
         with pytest.raises(ValueError, match="chunk"):
             mod.scan_where(path + ".two", "gt", 5, column="a", where="b", **kw)
     for name in ("scan_where_multi", "group_stats", "quantile", "median", "distinct",
-                 "value_counts", "top_k"):
+                 "value_counts", "top_k", "select", "join"):
         assert hasattr(jan, name) and hasattr(tan, name)
-    for name in ("select", "join"):
-        assert hasattr(jan, name) and not hasattr(tan, name)
 
 
 def test_table_scans_refuse_to_run_without_a_gpu(table):

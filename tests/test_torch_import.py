@@ -37,7 +37,7 @@ def test_every_module_is_listed():
                  "fio", "ops._engine", "ops.bitpack", "ops.ffor", "ops.delta",
                  "ops.transpose", "kernels.cuda_codecs", "kernels.build",
                  "fio_device", "convert", "ops.orig", "ops.single", "ops.dispatch",
-                 "models.codecs", "fio_table", "analytics"):
+                 "models.codecs", "fio_table", "analytics", "native"):
         assert f"fastlanes_tpu_torch.{want}" in names
 
 
@@ -123,9 +123,9 @@ def test_public_codec_names_match_the_reference_package():
 
 
 def test_table_multi_file_and_scan_names_resolve_to_their_modules():
-    """The nineteen names of the float / table / scan / aggregation paths,
-    under the JAX package's names; the analytics entries still to be ported
-    are absent."""
+    """The twenty-one names of the float / table / scan / aggregation / row
+    paths, under the JAX package's names: the port's analytics has every
+    public entry of the JAX package's."""
     from fastlanes_tpu_torch import analytics, fio_device, fio_table
 
     homes = {fio_table: ("write_table", "read_table", "read_column", "TableWriter",
@@ -133,15 +133,11 @@ def test_table_multi_file_and_scan_names_resolve_to_their_modules():
              fio_device: ("read_files_device", "iter_files_device", "read_column_device"),
              analytics: ("scan_column", "scan_table", "count_where", "scan_where",
                          "scan_where_multi", "group_stats", "distinct", "value_counts",
-                         "top_k", "quantile", "median")}
+                         "top_k", "quantile", "median", "select", "join")}
     for module, names in homes.items():
         for name in names:
             assert name in fastlanes_tpu_torch.__all__, name
             assert getattr(fastlanes_tpu_torch, name) is getattr(module, name), name
-    for name in ("select", "join"):
-        assert name not in fastlanes_tpu_torch.__all__
-        with pytest.raises(AttributeError):
-            getattr(fastlanes_tpu_torch, name)
 
 
 def test_default_device_is_the_gpu_or_an_error(tmp_path):

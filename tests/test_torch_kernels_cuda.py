@@ -545,3 +545,63 @@ def test_aggregations_on_the_card_equal_the_cpu_path(card, tmp_path):
     both(lambda dev: analytics.quantile(path, "qty", [0.01, 0.5, 0.99], device=dev))
     both(lambda dev: analytics.median(path, "ratio", device=dev))
     both(lambda dev: analytics.quantile(path, "amount", 0.9, device=dev))
+
+
+def same_rows(got, want):
+    """select / join results equal (types, dtypes, masks, and bit for bit
+    wherever no mask hides a value)."""
+    assert list(got) == list(want)
+    for name, w in want.items():
+        g = got[name]
+        assert type(g) is type(w) and g.dtype == w.dtype and g.shape == w.shape, name
+        present = ~np.ma.getmaskarray(w)
+        assert np.array_equal(np.ma.getmaskarray(g), ~present), name
+        gd, wd = np.ma.getdata(g)[present], np.ma.getdata(w)[present]
+        if wd.dtype.kind == "f":
+            gd, wd = gd.view(f"u{wd.itemsize}"), wd.view(f"u{wd.itemsize}")
+        assert np.array_equal(gd, wd), name
+
+
+def test_select_and_join_on_the_card_equal_the_cpu_path(card, tmp_path):
+    """select (plain, LIMIT, ORDER BY with and without LIMIT, heavy ties at
+    32 and 64 bits, a two-file dataset) and join (integer and string keys,
+    inner and left) on the card give the CPU path's rows exactly."""
+    from fastlanes_tpu_torch import analytics, fio_table
+
+    rng = np.random.default_rng(19)
+    n = 200 * 1024 + 333
+    cols = small_table(rng, n)
+    cols["store"] = rng.integers(0, 40, n).astype(np.uint16)
+    cols["tick"] = rng.integers(0, 5, n).astype(np.int64)  # 64-bit ties
+    cols["price"][rng.integers(0, n, 40)] = np.nan
+    path = str(tmp_path / "rows.flt")
+    fio_table.write_table(path, cols, chunk_blocks=8)
+    halves = [str(tmp_path / f"half{i}.flt") for i in range(2)]
+    for p, rows in zip(halves, (slice(0, n // 2), slice(n // 2, None))):
+        fio_table.write_table(p, {k: v[rows] for k, v in cols.items()}, chunk_blocks=8)
+    dim = str(tmp_path / "dim.flt")
+    fio_table.write_table(dim, {"store": np.arange(0, 40, 2, dtype=np.uint16)[::-1].copy(),
+                                "name": np.array([f"s{i}" for i in range(20)])})
+    curs = str(tmp_path / "curs.flt")
+    fio_table.write_table(curs, {"cur": np.array(["EUR", "JPY", "ZAR"]),
+                                 "rate": np.array([1.0, 0.006, 0.05])})
+
+    def both(fn):
+        same_rows(fn(None), fn("cpu"))
+
+    for kw in ({"preds": [("cur", "eq", "EUR"), ("qty", "ge", 70_100)]},
+               {"columns": ["key", "visits"], "preds": [("qty", "lt", 70_300)], "limit": 5000},
+               {"columns": ["price", "key"], "order_by": "price", "desc": True, "limit": 100},
+               {"columns": ["store", "key"], "order_by": "store", "limit": 3000},
+               {"columns": ["tick", "key"], "order_by": "tick", "desc": True, "limit": 3000},
+               {"columns": ["visits", "day"], "order_by": "visits", "limit": 700,
+                "preds": [("cur", "ne", "JPY")]},
+               {"columns": ["qty", "cur"], "order_by": "qty",
+                "preds": [("store", "eq", 3)]}):
+        both(lambda dev: analytics.select(path, device=dev, **kw))
+        both(lambda dev: analytics.select(halves, device=dev, **kw))
+    both(lambda dev: analytics.join(path, dim, "store", columns=["key", "store"], device=dev))
+    both(lambda dev: analytics.join(path, dim, "store", how="left", limit=9000, device=dev,
+                                    preds=[("qty", "gt", 70_500)]))
+    both(lambda dev: analytics.join(halves, curs, "cur", how="left", columns=["key"],
+                                    device=dev))
