@@ -44,7 +44,20 @@ the worst real key, and over a two-file dataset) and `join` (the group
 table with a 65536-sku dimension on a u32 key, inner, and the table with a
 20-currency dimension on a string key, left), each equal to a NumPy oracle
 that spells out the tie rule; beside them the two tables are written again
-with the host codec and without it. Last it times each kernel at the largest shape its path gave it,
+with the host codec and without it. The sharded codecs (`parallel/`) come
+next: at one rank over NCCL in this process, every sharded encode and decode
+on the headline, ffor, delta and zdelta columns and on a u8, a u16 and a u64
+column, each equal to the single-process entry and, at both ends, to
+numpy_ref; then two ranks over gloo on the one card, two child processes
+that pass the headline column at 131 072 + 5 blocks (unequal shards) and
+gather a payload whose sha256 must be the single-process `pack`'s; the path
+must launch `pack`, `unpack`, `unpack_orig`, `undelta_pack`,
+`undelta_pack_orig`, `unzdelta_pack`, `unzdelta_pack_orig`, `for_pack` and
+`unfor_pack` (SHARD_KERNELS). Then the command line (`cli.main` in this
+process, on the card): decompress --device, scan --where and --group-by, a
+select with ORDER BY ... LIMIT and a join, each answer equal to the library
+call's; the path must launch `unpack`, `unfor_pack` and `undelta_pack_orig`
+(CLI_KERNELS). Last it times each kernel at the largest shape its path gave it,
 beside its bound, its plain version and a device copy, all eleven kernels
 of every dtype at a size whose bytes bound is at least 0.1 ms, the group
 accumulator with and without its spread copies, and each read, encode, scan,
@@ -60,6 +73,7 @@ line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -127,6 +141,14 @@ READ_KERNELS = ("unpack", "unfor_pack", "unpack_orig", "undelta_pack_orig",
                 "unzdelta_pack_orig")
 ENCODE_PATH_KERNELS = ("pack", "for_pack", "delta_pack_orig")
 TRANSPOSED_KERNELS = ("undelta_pack", "unzdelta_pack", "delta_pack")
+#: the sharded codecs (parallel/) at one rank over NCCL: every sharded decode
+#: and encode, transposed and original order
+SHARD_KERNELS = ("pack", "unpack", "unpack_orig", "undelta_pack", "undelta_pack_orig",
+                 "unzdelta_pack", "unzdelta_pack_orig", "for_pack", "unfor_pack")
+#: the command line on the card: decompress --device of the headline file
+#: (unpack), a scan of the ffor qty column (unfor_pack), a select that
+#: gathers the sorted delta key column in original order (undelta_pack_orig)
+CLI_KERNELS = ("unpack", "unfor_pack", "undelta_pack_orig")
 SOURCE = "fastlanes_tpu_torch/csrc/codecs.cu"
 
 
@@ -1759,7 +1781,7 @@ def phase_query(table: dict, groups: dict, tmp: str, device=None) -> dict:
           "calls": calls, "writer_walls": writers, "launches": launches,
           "launches_by_dtype": by_dtype})
     return {"launches": launches, "by_dtype": by_dtype, "rows_out": rows_out,
-            "calls": queries}
+            "calls": queries, "dims": {n: d["path"] for n, d in dims.items()}}
 
 
 def phase_native(rng) -> dict:
@@ -1800,6 +1822,362 @@ def phase_native(rng) -> dict:
           "flags": " ".join(native.CXX_FLAGS), "build_seconds": native.last_build_seconds,
           "times": times})
     return times
+
+
+# ---------------------------------------------------------------------------
+# the sharded codecs and the command line
+
+
+#: the two-rank run's child: a gloo group through a file:// store, both ranks
+#: on cuda:0 (NCCL refuses two ranks on one device), each passing the whole
+#: headline column of 131 072 + 5 blocks; rank r holds blocks [r*s, (r+1)*s)
+SHARD_CHILD = r"""
+import hashlib, json, statistics, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+rank, store, data, root, device = (int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4],
+                                   sys.argv[5])
+sys.path.insert(0, root)
+from fastlanes_tpu_torch import parallel
+from fastlanes_tpu_torch.kernels import cuda_codecs as ck
+
+dist.init_process_group("gloo", init_method="file://" + store, rank=rank, world_size=2)
+mesh = parallel.make_mesh(device=device)
+values = torch.from_numpy(np.load(data)).to(device)
+walls = {}
+
+
+def sync():
+    if values.is_cuda:
+        torch.cuda.synchronize()
+
+
+def timed(name, fn):
+    samples = []
+    for _ in range(3):
+        dist.barrier()
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    walls[name] = statistics.median(samples)
+    return out
+
+
+ck.reset_launches()
+bits = int(timed("global_max_bits", lambda: parallel.global_max_bits(mesh, values, "u32")))
+local = timed("sharded_pack", lambda: parallel.sharded_pack(mesh, values, bits, "u32"))
+whole = timed("all_gather_packed", lambda: parallel.all_gather_packed(mesh, local, "u32"))
+decoded = timed("sharded_unpack", lambda: parallel.sharded_unpack(mesh, whole, bits, "u32"))
+bad = int(timed("sharded_roundtrip_check",
+                lambda: parallel.sharded_roundtrip_check(mesh, values, bits, "u32")))
+s = -(-values.shape[0] // 2)
+mine = values[rank * s:(rank + 1) * s]
+print(json.dumps({
+    "rank": rank, "backend": dist.get_backend(), "blocks": local.shape[0], "bits": bits,
+    "roundtrip_mismatches": bad, "gathered_blocks": whole.shape[0],
+    "decoded_equal": bool(torch.equal(decoded.view(torch.int32), mine.view(torch.int32))),
+    "sha256": hashlib.sha256(whole.cpu().numpy().tobytes()).hexdigest(),
+    "launches": {k: v for k, v in ck.LAUNCHES.items() if v},
+    "launches_by_dtype": {f"{k}[{d}]": v for (k, d), v in ck.LAUNCHES_BY_DTYPE.items()},
+    "walls_ms": walls}), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def median_wall_ms(fn, device, reps: int = 3) -> float:
+    """Median wall ms of `reps` calls, each ending in a synchronise, after
+    one warm-up."""
+    fn()
+    samples = []
+    for _ in range(reps):
+        sync_if_cuda(device)
+        t0 = time.perf_counter()
+        fn()
+        sync_if_cuda(device)
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(samples)
+
+
+def two_rank_run(tmp: str, head: np.ndarray, device) -> dict:
+    """The headline column at HEADLINE_BLOCKS + 5 blocks through two child
+    processes on the one card; their gathered payload against the single
+    process `pack` of the same data. A child that fails, prints no line or
+    runs past its time fails the smoke."""
+    extra = np.random.default_rng(SEED + 10).integers(0, 8, size=(5, layout.BLOCK),
+                                                      dtype=np.uint32)
+    data = np.concatenate([head, extra])
+    data_path = os.path.join(tmp, "two_rank.npy")
+    np.save(data_path, data)
+    store = os.path.join(tmp, "two_rank.store")
+    root = os.path.dirname(os.path.abspath(__file__))
+    child_device = "cuda:0" if device.type == "cuda" else "cpu"
+    procs = [subprocess.Popen([sys.executable, "-c", SHARD_CHILD, str(rank), store,
+                               data_path, root, child_device], cwd=root, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for rank in range(2)]
+    t0 = time.perf_counter()
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    lines = []
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        found = [line for line in out.splitlines() if line.startswith("{")]
+        if p.returncode != 0 or len(found) != 1:
+            raise AssertionError(f"two-rank child {rank} failed (rc {p.returncode}):\n"
+                                 f"{out[-2000:]}\n{err[-4000:]}")
+        lines.append(json.loads(found[0]))
+    bits = int(data.max()).bit_length()
+    single = ck.pack(torch.from_numpy(data).to(device), bits, "u32")
+    want = hashlib.sha256(single.cpu().numpy().tobytes()).hexdigest()
+    del single
+    s = -(-data.shape[0] // 2)
+    for line in lines:
+        ok = (line["bits"] == bits and line["roundtrip_mismatches"] == 0
+              and line["decoded_equal"] and line["sha256"] == want
+              and line["gathered_blocks"] == data.shape[0]
+              and line["blocks"] == min(s, data.shape[0] - line["rank"] * s))
+        if not ok:
+            raise AssertionError(f"two-rank run: rank {line['rank']} disagrees with the "
+                                 f"single-process pack ({want}): {line}")
+    os.remove(data_path)
+    return {"blocks": data.shape[0], "ranks": lines, "single_process_sha256": want,
+            "seconds": seconds}
+
+
+def phase_shard(columns: dict, dev: dict, encoded: dict, tmp: str, device=None,
+                card: str = "cpu") -> dict:
+    """The sharded codecs on the card. One rank over NCCL in this process,
+    at full size: every sharded op against the port's single-process entry
+    on the same tensors (bit for bit) and, on its first and last
+    ORACLE_BLOCKS, against numpy_ref; `global_max_bits` against numpy, the
+    round-trip check at 0. Then two ranks over gloo on the one card, the
+    headline column only, with unequal shards."""
+    from fastlanes_tpu_torch import parallel
+    import torch.distributed as dist
+
+    device = eng.resolve_device(device)
+    if dist.is_initialized():
+        raise AssertionError("a process group is already initialized")
+    mesh = parallel.make_mesh(device=device)
+    backend = dist.get_backend()
+    k = ORACLE_BLOCKS
+    ffor, delta, zdelta = (encoded[n] for n in ("ffor_u32", "delta_u32", "zdelta_u32"))
+    host = {name: columns[name][0].reshape(-1, layout.BLOCK)
+            for name in ("headline_u32_w3", "ffor_u32", "delta_u32", "zdelta_u32",
+                         "small_u8", "small_u16", "timestamps_u64")}
+
+    def ends(arr):
+        return [arr[:k], arr[-k:]]
+
+    ops = {}  # label -> (sharded call, single-process call, oracle of host blocks)
+    for name in ("headline_u32_w3", "small_u8", "small_u16", "timestamps_u64"):
+        vals, hv = dev[name], host[name]
+        dt = _DTYPE_OF[vals.dtype]
+        w = int(hv.max()).bit_length()
+        packed = ck.pack(vals, w, dt)
+        ops[f"sharded_pack[{name}]"] = (
+            lambda v=vals, w=w, dt=dt: parallel.sharded_pack(mesh, v, w, dt),
+            lambda v=vals, w=w, dt=dt: ck.pack(v, w, dt),
+            lambda b, w=w, dt=dt: npref.pack(b, w, dt), hv)
+        ops[f"sharded_unpack[{name}]"] = (
+            lambda p=packed, w=w, dt=dt: parallel.sharded_unpack(mesh, p, w, dt),
+            lambda p=packed, w=w, dt=dt: ck.unpack(p, w, dt), lambda b: b, hv)
+        ops[f"sharded_unpack(orig)[{name}]"] = (
+            lambda p=packed, w=w, dt=dt: parallel.sharded_unpack(mesh, p, w, dt, orig=True),
+            lambda p=packed, w=w, dt=dt: ck.unpack_orig(p, w, dt),
+            lambda b, dt=dt: npref.untranspose(b, dt), hv)
+    ref, fw = ffor.params["reference"], ffor.width
+    ops["sharded_for_pack[ffor_u32]"] = (
+        lambda: parallel.sharded_for_pack(mesh, dev["ffor_u32"], ref, fw, "u32"),
+        lambda: ck.for_pack(dev["ffor_u32"], ref, fw, "u32"),
+        lambda b: npref.for_pack(b, ref, fw, "u32"), host["ffor_u32"])
+    ops["sharded_unfor_pack[ffor_u32]"] = (
+        lambda: parallel.sharded_unfor_pack(mesh, ffor.payload, ref, fw, "u32"),
+        lambda: ck.unfor_pack(ffor.payload, ref, fw, "u32"), lambda b: b, host["ffor_u32"])
+    for name, enc, sharded, single, orig_single in (
+            ("delta_u32", delta, parallel.sharded_undelta_pack, ck.undelta_pack,
+             ck.undelta_pack_orig),
+            ("zdelta_u32", zdelta, parallel.sharded_unzdelta_pack, ck.unzdelta_pack,
+             ck.unzdelta_pack_orig)):
+        base, w = enc.params["base"], enc.width
+        ops[f"{sharded.__name__}[{name}]"] = (
+            lambda f=sharded, e=enc, b=base, w=w: f(mesh, e.payload, b, w, "u32"),
+            lambda f=single, e=enc, b=base, w=w: f(e.payload, b, w, "u32"),
+            lambda b: npref.transpose(b, "u32"), host[name])
+        ops[f"{sharded.__name__}(orig)[{name}]"] = (
+            lambda f=sharded, e=enc, b=base, w=w: f(mesh, e.payload, b, w, "u32", orig=True),
+            lambda f=orig_single, e=enc, b=base, w=w: f(e.payload, b, w, "u32"),
+            lambda b: b, host[name])
+    head = dev["headline_u32_w3"]
+    sync_if_cuda(device)
+
+    ck.reset_launches()
+    results = {label: call[0]() for label, call in ops.items()}
+    bits = int(parallel.global_max_bits(mesh, head, "u32"))
+    bad = int(parallel.sharded_roundtrip_check(mesh, head, bits, "u32"))
+    gathered = parallel.all_gather_packed(mesh, results["sharded_pack[headline_u32_w3]"],
+                                          "u32")
+    sync_if_cuda(device)
+    launches, by_dtype = launch_counts()
+
+    report = {}
+    for label, (_, single, oracle, hv) in ops.items():
+        got = results.pop(label)
+        if not same(got, single()):
+            raise AssertionError(f"{label}: differs from the single-process entry")
+        for part, blocks in zip(ends(got), ends(hv)):
+            if not np.array_equal(part.cpu().numpy(), oracle(blocks)):
+                raise AssertionError(f"{label}: differs from numpy_ref at the ends")
+        report[label] = {"blocks": got.shape[0], "dtype": _DTYPE_OF[got.dtype]}
+        del got
+    if bits != int(host["headline_u32_w3"].max()).bit_length():
+        raise AssertionError(f"global_max_bits {bits}")
+    if bad:
+        raise AssertionError(f"sharded_roundtrip_check: {bad} mismatches")
+    if not same(gathered, ck.pack(head, bits, "u32")):
+        raise AssertionError("all_gather_packed at one rank differs from pack")
+    del gathered
+
+    # walls at one rank (median of 3), the headline ops beside the two-rank run
+    headline_ops = {
+        "global_max_bits": lambda: parallel.global_max_bits(mesh, head, "u32"),
+        "sharded_pack": ops["sharded_pack[headline_u32_w3]"][0],
+        "all_gather_packed": lambda p=parallel.sharded_pack(mesh, head, bits, "u32"):
+            parallel.all_gather_packed(mesh, p, "u32"),
+        "sharded_unpack": ops["sharded_unpack[headline_u32_w3]"][0],
+        "sharded_roundtrip_check":
+            lambda: parallel.sharded_roundtrip_check(mesh, head, bits, "u32"),
+    }
+    for label in report:
+        report[label].update(world_1_ms=median_wall_ms(ops[label][0], device),
+                             world_1_backend=backend)
+    world_1 = {name: median_wall_ms(fn, device) for name, fn in headline_ops.items()}
+    single_pack_ms = median_wall_ms(ops["sharded_pack[headline_u32_w3]"][1], device)
+    dist.destroy_process_group()
+    del mesh
+
+    two = two_rank_run(tmp, host["headline_u32_w3"], device)
+    headline = {name: {"blocks": [head.shape[0], two["blocks"]], "world_1_ms": ms,
+                       "world_1_backend": backend,
+                       "world_2_ms_by_rank": [r["walls_ms"][name] for r in two["ranks"]],
+                       "world_2_backend": two["ranks"][0]["backend"]}
+                for name, ms in world_1.items()}
+    emit({"phase": "shard", "tolerance": 0, "device": str(device), "card": card,
+          "world_1": {"backend": backend, "ops": report},
+          "headline": headline, "pack_ms_single_process": single_pack_ms,
+          "two_rank": {k: v for k, v in two.items() if k != "ranks"},
+          "two_rank_ranks": [{k: v for k, v in r.items() if k != "walls_ms"}
+                             for r in two["ranks"]],
+          "gloo_collectives": "gloo takes the CUDA tensors of every collective used "
+                              "(all_gather, all-reduce MAX and SUM, barrier) and moves them "
+                              "through host memory itself; the port stages nothing",
+          "multi_gpu_scaling": "not measured: one card",
+          "launches": launches})
+    return {"launches": launches, "by_dtype": by_dtype}
+
+
+def same_rows_npz(path: str, rows: dict) -> bool:
+    """The .npz a CLI select / join wrote == the library's rows (masked
+    columns as X + X__valid, floats bit for bit)."""
+    with np.load(path) as data:
+        want = {}
+        for key, val in rows.items():
+            if isinstance(val, np.ma.MaskedArray):
+                want[key] = np.asarray(np.ma.getdata(val))
+                want[f"{key}__valid"] = ~np.ma.getmaskarray(val)
+            else:
+                want[key] = val
+        if sorted(data.files) != sorted(want):
+            return False
+        for key, val in want.items():
+            got = data[key]
+            if got.dtype != val.dtype or got.shape != val.shape:
+                return False
+            if val.dtype.kind == "f":
+                got, val = got.view(np.uint8), val.view(np.uint8)
+            if not np.array_equal(got, val):
+                return False
+    return True
+
+
+def phase_cli(read_paths: dict, table: dict, query_state: dict, tmp: str,
+              device=None, card: str = "cpu") -> dict:
+    """`fastlanes_tpu_torch.cli.main` in this process, on the card (no `--on`):
+    decompress --device of the headline file, a scan with --where and one with
+    --group-by on the table, a select with ORDER BY ... LIMIT and a join. The
+    launch counts are read after the CLI calls, before the library calls that
+    give each answer to compare with."""
+    import io
+
+    from fastlanes_tpu_torch import cli
+
+    device = eng.resolve_device(device)
+    on = [] if device.type == "cuda" else ["--on", "cpu"]
+    tpath, dim = table["path"], query_state["dims"]["currencies"]
+    head = read_paths["headline_u32_w3"]
+    out_npy, out_sel, out_join = (os.path.join(tmp, n) for n in
+                                  ("cli_head.npy", "cli_select.npz", "cli_join.npz"))
+    where, cut = 1_000_000_500, 1_000_000_250
+    calls = {
+        "decompress --device": ["decompress", head, out_npy, "--device"],
+        "scan --where": ["scan", tpath, "--column", "qty", "--where", f"gt:{where}"],
+        "scan --group-by": ["scan", tpath, "--column", "price", "--group-by", "cur"],
+        "select --order-by --limit": ["select", tpath, out_sel, "--columns", "key,price,cur",
+                                      "--order-by", "price", "--desc", "--limit", "100"],
+        "join": ["join", tpath, dim, out_join, "--on", "cur", "--columns", "key,cur",
+                 "--where", f"qty:lt:{cut}", "--how", "left"],
+    }
+    ck.reset_launches()
+    printed, walls = {}, {}
+    for label, argv in calls.items():
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            code = cli.main(on + argv)
+        walls[label] = (time.perf_counter() - t0) * 1e3
+        if code != 0:
+            raise AssertionError(f"cli {label}: exit code {code}")
+        printed[label] = buf.getvalue().strip()
+    launches, by_dtype = launch_counts()
+
+    want = fio_device.read_file_device(head, device=device).cpu().numpy()
+    got = np.load(out_npy)
+    if got.dtype != want.dtype or not np.array_equal(got, want):
+        raise AssertionError("cli decompress --device differs from read_file_device")
+    del got, want
+    os.remove(out_npy)
+    stats = analytics.scan_column(tpath, column="qty", device=device)
+    filtered = analytics.scan_where(tpath, "gt", where, column="qty", device=device)
+    stats[f"count_gt_{where}"] = filtered["count"]
+    stats["where"] = dict(op="gt", value=where, column="qty", **filtered)
+    groups = analytics.group_stats(tpath, "cur", "price", preds=[], device=device)
+    answers = {
+        "scan --where": printed["scan --where"] == json.dumps(stats),
+        "scan --group-by": printed["scan --group-by"] == json.dumps(
+            {str(g): s for g, s in groups.items()}),
+        "select --order-by --limit": same_rows_npz(out_sel, analytics.select(
+            tpath, ["key", "price", "cur"], order_by="price", desc=True, limit=100,
+            device=device)),
+        "join": same_rows_npz(out_join, analytics.join(
+            tpath, dim, "cur", columns=["key", "cur"], preds=[("qty", "lt", cut)],
+            how="left", device=device)),
+    }
+    if not all(answers.values()):
+        raise AssertionError(f"cli answers differ from the library's: {answers}")
+    emit({"phase": "cli", "tolerance": 0, "device": str(device), "card": card,
+          "calls": {label: {"argv": " ".join(os.path.basename(a) for a in argv),
+                            "wall_ms": walls[label]} for label, argv in calls.items()},
+          "import_export": "not driven here: pyarrow is not installed on the card's "
+                           "machine (tested on the CPU, tests/test_torch_cli.py)",
+          "launches": launches})
+    return {"launches": launches, "by_dtype": by_dtype}
 
 
 # ---------------------------------------------------------------------------
@@ -2284,7 +2662,9 @@ def main() -> int:
         encode_state = drive("encode", lambda: phase_encode(columns), ENCODE_PATH_KERNELS)
         transposed_state = drive("transposed", lambda: phase_transposed(encode_state),
                                  TRANSPOSED_KERNELS)
-        encode_state.pop("encoded")
+        encoded = encode_state.pop("encoded")
+        shard_encoded = {n: encoded[n] for n in ("ffor_u32", "delta_u32", "zdelta_u32")}
+        del encoded
         alp_state = drive("alp", lambda: phase_alp(tmp, 1), ("unpack", "pack"))
         alp_state.pop("columns")
         table = drive("table", lambda: phase_table(tmp, 1),
@@ -2297,6 +2677,12 @@ def main() -> int:
                        ("unpack", "unfor_pack", "undelta_pack", "undelta_pack_orig"))
         queries = drive("query", lambda: phase_query(table, groups, tmp),
                         ("unpack", "unfor_pack", "undelta_pack_orig"))
+        drive("shard", lambda: phase_shard(columns, encode_state["device_columns"],
+                                           shard_encoded, tmp, card=info["nvidia_smi"]),
+              SHARD_KERNELS)
+        del shard_encoded
+        drive("cli", lambda: phase_cli(read_state["paths"], table, queries, tmp,
+                                       card=info["nvidia_smi"]), CLI_KERNELS)
         del columns
         files.pop("shard_values")
         entries = slice_entries(alp_state, table, files, read_state["paths"], groups, queries)

@@ -5,7 +5,8 @@ The FastLanes compression layout (Afroozeh & Boncz, VLDB 2023) over
 format on the host (single columns and tables), device-side column reads
 (one file, many files, table columns; integer, string and float columns),
 device-side column encode through the codec classes, and scans and
-aggregations that consume a device read, with the encode and decode kernels hand-written in CUDA. Imports torch and numpy, never jax, and nothing of the JAX package.
+aggregations that consume a device read, and the codecs sharded over
+the ranks of a process group, with the encode and decode kernels hand-written in CUDA. Imports torch and numpy, never jax, and nothing of the JAX package.
 
 Device rule: every entry that touches the device takes `device=None`, which
 means the GPU and raises RuntimeError when there is none; the CPU is used
@@ -27,6 +28,11 @@ Layer map (same module names as fastlanes_tpu):
              group_stats, distinct, value_counts, top_k, quantile, median,
              select, join)
   convert    array forms of the JAX package <-> tensors of the port
+  parallel/  process-group meshes and the sharded codecs (torch.distributed)
+  native/    C++ host codec (ctypes, built with g++ at first use)
+  utils/     golden-vector helpers, timing, Encoded persistence
+  interop    Arrow / Parquet / CSV / pandas <-> FLT tables (pyarrow, lazily)
+  cli        `python -m fastlanes_tpu_torch`, the FLT command line
 """
 
 __version__ = "0.1.0"

@@ -198,3 +198,21 @@ def test_fio_table_copy_writes_the_same_bytes(tmp_path, rng, case, chunk_blocks)
         assert got.dtype == want.dtype and got.shape == want.shape
         assert np.array_equal(np.ma.getdata(got), np.ma.getdata(want),
                               equal_nan=want.dtype.kind == "f")
+
+
+def test_golden_digests_copy_agrees():
+    """utils/testing.py's golden payload digests, and the payloads the
+    port's oracle packs for them."""
+    from fastlanes_tpu.utils import testing as jtesting
+
+    from fastlanes_tpu_torch.utils import testing as ttesting
+
+    assert ttesting.GOLDEN_SHA256 == jtesting.GOLDEN_SHA256
+    readme = (np.arange(1024) % 8).astype(np.uint16)
+    assert ttesting.sha256_le(tref.pack(readme, 3, "u16")[0]) == \
+        ttesting.GOLDEN_SHA256["readme_u16_w3"]
+    steps = (np.arange(1024) // 8).astype(np.uint16)
+    transposed = tref.transpose(steps, "u16")
+    deltas = tref.delta(transposed, np.zeros(64, np.uint16), "u16")
+    assert ttesting.sha256_le(tref.pack(deltas, 15, "u16")[0]) == \
+        ttesting.GOLDEN_SHA256["delta_u16_w15"]

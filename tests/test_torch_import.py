@@ -37,7 +37,9 @@ def test_every_module_is_listed():
                  "fio", "ops._engine", "ops.bitpack", "ops.ffor", "ops.delta",
                  "ops.transpose", "kernels.cuda_codecs", "kernels.build",
                  "fio_device", "convert", "ops.orig", "ops.single", "ops.dispatch",
-                 "models.codecs", "fio_table", "analytics", "native"):
+                 "models.codecs", "fio_table", "analytics", "native", "parallel",
+                 "parallel.mesh", "parallel.shard", "utils", "utils.serialization",
+                 "utils.testing", "utils.timing", "interop", "cli", "__main__"):
         assert f"fastlanes_tpu_torch.{want}" in names
 
 

@@ -109,10 +109,13 @@ def test_non_temporal_paths_and_out_buffers():
     assert native.aligned_empty((3, 5), np.uint64).ctypes.data % 64 == 0
 
 
+#: the race is about the lock and the rename, not the code g++ makes: at -O0
+#: the 8 parts build in well under half the time of the package's -O2
 RACE = r"""
 import sys
 from fastlanes_tpu_torch import native
 native.BUILD_DIR = sys.argv[1]
+native.CXX_FLAGS = ("-O0",) + tuple(f for f in native.CXX_FLAGS if not f.startswith("-O"))
 lib_dir = native.build()
 import numpy as np
 v = (np.arange(2 * 1024) % 8).astype(np.uint32).reshape(2, 1024)
