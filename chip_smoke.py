@@ -57,7 +57,13 @@ must launch `pack`, `unpack`, `unpack_orig`, `undelta_pack`,
 process, on the card): decompress --device, scan --where and --group-by, a
 select with ORDER BY ... LIMIT and a join, each answer equal to the library
 call's; the path must launch `unpack`, `unfor_pack` and `undelta_pack_orig`
-(CLI_KERNELS). Last it times each kernel at the largest shape its path gave it,
+(CLI_KERNELS). Then the five example scripts (examples/torch_*.py), each
+`main(["--on", "cuda"])` in this process at its default size, every answer
+held to a NumPy oracle written here from the same seed and size; the path
+must launch `unpack`, `pack`, `undelta_pack_orig`, `unfor_pack` and
+`delta_pack_orig` (EXAMPLE_KERNELS). Right after the build, `kernels.warmup`
+of all eleven kernels over every dtype and width (1320 launches) gives the
+cold start. Last it times each kernel at the largest shape its path gave it,
 beside its bound, its plain version and a device copy, all eleven kernels
 of every dtype at a size whose bytes bound is at least 0.1 ms, the group
 accumulator with and without its spread copies, and each read, encode, scan,
@@ -74,6 +80,7 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import io
 import json
 import math
 import os
@@ -149,6 +156,14 @@ SHARD_KERNELS = ("pack", "unpack", "unpack_orig", "undelta_pack", "undelta_pack_
 #: (unpack), a scan of the ffor qty column (unfor_pack), a select that
 #: gathers the sorted delta key column in original order (undelta_pack_orig)
 CLI_KERNELS = ("unpack", "unfor_pack", "undelta_pack_orig")
+#: the example scripts (examples/torch_*.py, `main(["--on", "cuda"])` in this
+#: process at their default sizes): the ALP encode and the u16 README example
+#: (pack), every read (unpack), the table query's ffor chunks (unfor_pack),
+#: the sorted columns in original order (undelta_pack_orig), the delta
+#: encode on the card (delta_pack_orig)
+EXAMPLE_KERNELS = ("unpack", "pack", "undelta_pack_orig", "unfor_pack", "delta_pack_orig")
+EXAMPLES = ("float_columns", "end_to_end", "compressed_scan", "table_analytics",
+            "query_tour")
 SOURCE = "fastlanes_tpu_torch/csrc/codecs.cu"
 
 
@@ -263,6 +278,25 @@ def phase_build() -> None:
           "max_registers": max(registers, default=None),
           "max_spill_store_bytes": max(spills, default=None),
           "ptxas": usage, "seconds": time.perf_counter() - t0})
+
+
+def phase_warmup(card: str) -> None:
+    """`kernels.warmup` of all eleven kernels over every dtype and width at
+    CHECK_BLOCKS blocks: the port's cold start on the card (each kernel's
+    first launches), then the same call warm. Every entry is one launch."""
+    n_widths = sum(layout.bit_width(dt) for dt in layout.DTYPES)
+    walls = []
+    for _ in range(2):
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        count = kernels.warmup(ops=tuple(KERNELS), n_blocks=CHECK_BLOCKS)
+        walls.append(time.perf_counter() - t0)
+        if count != len(KERNELS) * n_widths or ck.LAUNCHES != dict.fromkeys(KERNELS, n_widths):
+            raise AssertionError(f"warmup drove {count} entries, launches {ck.LAUNCHES}")
+    ck.reset_launches()
+    emit({"phase": "warmup", "card": card, "ops": list(KERNELS), "n_blocks": CHECK_BLOCKS,
+          "count": count, "launches_per_kernel": n_widths, "cold_wall_s": walls[0],
+          "warm_wall_s": walls[1]})
 
 
 def phase_kernels(rng) -> dict:
@@ -2114,8 +2148,6 @@ def phase_cli(read_paths: dict, table: dict, query_state: dict, tmp: str,
     --group-by on the table, a select with ORDER BY ... LIMIT and a join. The
     launch counts are read after the CLI calls, before the library calls that
     give each answer to compare with."""
-    import io
-
     from fastlanes_tpu_torch import cli
 
     device = eng.resolve_device(device)
@@ -2177,6 +2209,149 @@ def phase_cli(read_paths: dict, table: dict, query_state: dict, tmp: str,
           "import_export": "not driven here: pyarrow is not installed on the card's "
                            "machine (tested on the CPU, tests/test_torch_cli.py)",
           "launches": launches})
+    return {"launches": launches, "by_dtype": by_dtype}
+
+
+# ---------------------------------------------------------------------------
+# the example scripts
+
+
+def load_example(name: str):
+    """examples/torch_<name>.py as a module (the scripts are not a package)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                        f"torch_{name}.py")
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def numpy_stats(values: np.ndarray) -> dict:
+    return {"sum": int(values.sum(dtype=np.uint64)), "min": int(values.min()),
+            "max": int(values.max()), "count": int(values.size)}
+
+
+# oracle_<name>(got): the answers examples/torch_<name>.py must return, drawn
+# again here from the script's seeds at the size it reports in `got`
+
+
+def oracle_float_columns(got: dict) -> dict:
+    rng = np.random.default_rng(7)
+    prices = rng.integers(1000, 500_000, 100_000) / 100.0
+    temps = (rng.integers(-400, 400, 50_000) / 10.0).astype(np.float32)
+    # two decimals: exponent 2, factor 0, every value exact (no exception);
+    # the integers are the cents, packed as u64 against their minimum
+    cents = np.rint(prices[:96 * 1024] * 100).astype(np.int64)
+    width = int(cents.max() - cents.min()).bit_length()
+    return {"alp": {"e": 2, "f": 0, "width": width, "exceptions": 0, "ratio": 64 / width},
+            "raw_bytes": prices.nbytes, "read_single": float(prices[5 * 1024 + 123]),
+            "device_decode": {"dtype": "torch.float32", "values": temps.size,
+                              "bits_sum": int(temps.view(np.int32).sum(dtype=np.int64))},
+            "table_columns": ["price", "qty", "temp"]}
+
+
+def oracle_end_to_end(got: dict) -> dict:
+    vals = np.random.default_rng(0).integers(0, 1 << 11, (128, 1024),
+                                             np.int64).astype(np.uint32)
+    sorted_vals = np.sort(vals, axis=1)
+    rng = np.random.default_rng(7)
+    rng.integers(-50, 50, 3000, np.int64)  # the table's signed column
+    col = np.sort(rng.integers(0, 1 << 20, 4000, np.int64).astype(np.uint32))
+    tr = npref.transpose(sorted_vals, "u32")
+    wd = int(npref.delta(tr, np.ascontiguousarray(tr[:, :32]), "u32").max()).bit_length()
+    # sorted rows: delta (W=wd plus a 32-lane base a block) beats bit-packing
+    raw, delta_bytes = sorted_vals.nbytes, 128 * (1024 * wd // 8 + 32 * 4)
+    return {"unpack_single": 14 % 8, "read_single": int(sorted_vals[3, 777]),
+            "auto_encode": {"codec": "delta", "width": wd, "ratio": raw / delta_bytes},
+            "mesh_size": 1, "global_width": int(vals.max()).bit_length(),
+            "delta_width": wd, "orig_width": wd,
+            "table_dtypes": {"id": "uint32", "delta_t": "int16"},
+            "scan_column": numpy_stats(col), "count_gt": int((col > (1 << 19)).sum()),
+            "u64": {"dtype": "torch.uint64", "shape": [3000]}}
+
+
+def oracle_compressed_scan(got: dict) -> dict:
+    values = np.random.default_rng(0).integers(0, 1 << 7, (got["n_blocks"], layout.BLOCK),
+                                               np.int64).astype(np.uint32)
+    return {"sum_mod_2_32": int(values.sum(dtype=np.uint64)) % (1 << 32),
+            "max": int(values.max()), "count_gt_100": int((values > 100).sum())}
+
+
+def oracle_table_analytics(got: dict) -> dict:
+    n = got["rows"]
+    rng = np.random.default_rng(0)
+    customer = rng.integers(0, 10_000, n, np.int64).astype(np.uint32)
+    qty = rng.integers(1, 30, n, np.int64).astype(np.uint32)
+    mask = customer == 4242
+    cats = np.array(["EUR", "GBP", "JPY", "USD"])
+    return {"raw_mib": 8 * n / 2**20, "hits": int(mask.sum()),
+            "total_qty": int(qty[mask].sum()), "scan_where": numpy_stats(qty[mask]),
+            "group_tier": {g: int(qty[customer % 5 == g].sum()) for g in range(5)},
+            "eur": numpy_stats(qty[customer % 4 == 0]),
+            "group_currency": {str(c): int(qty[customer % 4 == i].sum())
+                               for i, c in enumerate(cats)}}
+
+
+def oracle_query_tour(got: dict) -> dict:
+    n = got["rows_per_shard"]
+    rng = np.random.default_rng(0)
+    cats = np.array(["EUR", "GBP", "JPY", "USD"])
+    qty, cur, price, null = [], [], [], []
+    for _ in range(3):  # the script's draws, shard by shard
+        qty.append(rng.integers(0, 1000, n).astype(np.uint32))
+        cur.append(cats[rng.integers(0, 4, n)])
+        price.append(np.round(rng.normal(100.0, 15.0, n), 2))
+        null.append(rng.random(n) < 0.05)
+        rng.integers(0, 86_400_000, n)  # the timestamps
+    qty, cur, price, null = (np.concatenate(a) for a in (qty, cur, price, null))
+    hot = (cur != "JPY") & (qty > 900)
+    gbp = np.flatnonzero((cur == "GBP") & ~null)
+    top5 = gbp[np.argsort(-price[gbp], kind="stable")[:5]]
+    return {"qty_sum": int(qty.sum()), "price_nulls": int(null.sum()),
+            "eur": numpy_stats(qty[cur == "EUR"]), "hot_count": int(hot.sum()),
+            "group_sums": {str(c): int(qty[cur == c].sum()) for c in cats},
+            "group_counts_qty_gt_900": {str(c): int(((cur == c) & (qty > 900)).sum())
+                                        for c in cats},
+            "distinct": [str(c) for c in cats],
+            "value_counts": {str(c): int((cur == c).sum()) for c in cats},
+            "top3": sorted(price[~null].tolist(), reverse=True)[:3],
+            "select": [(int(qty[i]), str(cur[i]), float(price[i])) for i in top5]}
+
+
+def phase_examples(device=None, sizes=None, card: str = "cpu") -> dict:
+    """Each example script's `main` in this process, on the card (`--on
+    cuda`) at its default size (`sizes`: name -> size argument, for a
+    rehearsal), every answer held to a NumPy oracle computed here from the
+    same seed and size. A script's own checks raise inside it; a wrong
+    answer raises here."""
+    device = eng.resolve_device(device)
+    sizes = sizes or {}
+    ck.reset_launches()
+    report = {}
+    for name in EXAMPLES:
+        module = load_example(name)
+        before = dict(ck.LAUNCHES_BY_DTYPE)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            answers = module.main(["--on", device.type, *sizes.get(name, [])])
+        wall = time.perf_counter() - t0
+        launched = {}
+        for (kernel, dtype), n in sorted(ck.LAUNCHES_BY_DTYPE.items()):
+            if n != before.get((kernel, dtype), 0):
+                launched.setdefault(kernel, {})[dtype] = n - before.get((kernel, dtype), 0)
+        want = globals()[f"oracle_{name}"](answers)
+        wrong = {k: {"want": v, "got": answers.get(k)} for k, v in want.items()
+                 if answers.get(k) != v}
+        if wrong:
+            raise AssertionError(f"example {name}: answers differ from the oracle: {wrong}")
+        report[name] = {"wall_s": wall, "answers": answers, "held_to_oracle": sorted(want),
+                        "launches": launched, "printed": buf.getvalue().splitlines()}
+    launches, by_dtype = launch_counts()
+    emit({"phase": "examples", "tolerance": 0, "device": str(device), "card": card,
+          "examples": report, "launches": launches})
     return {"launches": launches, "by_dtype": by_dtype}
 
 
@@ -2634,6 +2809,7 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     info = phase_device()
     phase_build()
+    phase_warmup(info["nvidia_smi"])
     worst = phase_kernels(rng)
     phase_native(np.random.default_rng(SEED + 9))
     columns = make_columns(rng, 1)
@@ -2684,6 +2860,7 @@ def main() -> int:
         drive("cli", lambda: phase_cli(read_state["paths"], table, queries, tmp,
                                        card=info["nvidia_smi"]), CLI_KERNELS)
         del columns
+        drive("examples", lambda: phase_examples(card=info["nvidia_smi"]), EXAMPLE_KERNELS)
         files.pop("shard_values")
         entries = slice_entries(alp_state, table, files, read_state["paths"], groups, queries)
         table.pop("columns")

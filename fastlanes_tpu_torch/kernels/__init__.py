@@ -16,10 +16,11 @@ from .cuda_codecs import (
     unpack_orig,
     unzdelta_pack,
     unzdelta_pack_orig,
+    warmup,
 )
 
 __all__ = [
     "cuda_codecs", "LAUNCHES", "pack", "pack_map", "unpack", "unfor_pack",
     "undelta_pack", "unzdelta_pack", "delta_pack", "for_pack", "unpack_orig",
-    "undelta_pack_orig", "unzdelta_pack_orig", "delta_pack_orig",
+    "undelta_pack_orig", "unzdelta_pack_orig", "delta_pack_orig", "warmup",
 ]

@@ -50,6 +50,9 @@ the same launches by dtype.
 `pack_map` takes a Python producer, which cannot enter a compiled kernel: it
 is the plain version on every device, as it is ops-only in the JAX package
 (pallas_codecs.py:738-744).
+
+`warmup` (pallas_codecs.py:926-983) loads the kernel library and launches
+each requested (kernel, dtype, width) once: the cold start of a server.
 """
 
 from __future__ import annotations
@@ -352,3 +355,43 @@ def delta_pack_orig(values, width, dtype, *, zigzag=False):
     still runs to produce the base. The returned base owns its memory."""
     return _run("delta_pack_orig", delta_pack_orig_plain, values, None, width, dtype,
                 zigzag=zigzag)
+
+
+def warmup(ops=("pack", "unpack"), dtypes=layout.DTYPES, widths=None, n_blocks=1024,
+           device=None):
+    """Make each requested (op, dtype, width) ready ahead of first use, the
+    serving cold-start mitigation, and return how many were driven. `ops`
+    are kernel names (any of the eleven), `widths=None` means 1..T of each
+    dtype. On a CUDA device (None = the GPU; raises without one) this loads
+    the kernel library and launches every entry once through its public
+    wrapper on zero tensors of `n_blocks` blocks with a zero base or
+    reference, then synchronises; `device="cpu"` runs the plain versions."""
+    unknown = [op for op in ops if op not in _KERNELS]
+    if unknown:
+        raise ValueError(f"unknown op {unknown[0]!r}; have {sorted(_KERNELS)}")
+    device = eng.resolve_device(device)
+    if device.type == "cuda":
+        build.load()
+    count = 0
+    for dt in dtypes:
+        dt = layout.canon_dtype(dt)
+        values = torch.zeros((n_blocks, layout.BLOCK), dtype=eng.torch_dtype(dt),
+                             device=device)
+        base = torch.zeros(layout.lanes(dt), dtype=values.dtype, device=device)
+        for w in widths if widths is not None else range(1, layout.bit_width(dt) + 1):
+            layout.check_width(dt, w)
+            packed = torch.zeros((n_blocks, layout.packed_len(dt, w)), dtype=values.dtype,
+                                 device=device)
+            for op in ops:
+                fn = globals()[op]  # the public wrapper of that kernel
+                src = values if _KERNELS[op][0] == "fl_encode" else packed
+                if op in ("pack", "unpack", "unpack_orig", "delta_pack_orig"):
+                    fn(src, w, dt)
+                elif op in ("for_pack", "unfor_pack"):
+                    fn(src, 0, w, dt)
+                else:
+                    fn(src, base, w, dt)
+                count += 1
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return count

@@ -3,6 +3,7 @@ wrappers (BitPacked, FFoR, Delta, ZDelta, RLE, Dict) and the automatic
 width / reference / codec selection."""
 
 from .codecs import (
+    ALPCodec,
     BitPackedCodec,
     Codec,
     DeltaCodec,
@@ -18,7 +19,7 @@ from .codecs import (
 )
 
 __all__ = [
-    "Codec", "BitPackedCodec", "DeltaCodec", "DictCodec", "FFoRCodec", "RLECodec",
+    "Codec", "ALPCodec", "BitPackedCodec", "DeltaCodec", "DictCodec", "FFoRCodec", "RLECodec",
     "ZDeltaCodec", "Encoded", "auto_costs", "auto_encode", "bits_needed",
     "get_codec",
 ]

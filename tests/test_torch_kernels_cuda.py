@@ -605,3 +605,15 @@ def test_select_and_join_on_the_card_equal_the_cpu_path(card, tmp_path):
                                     preds=[("qty", "gt", 70_500)]))
     both(lambda dev: analytics.join(halves, curs, "cur", how="left", columns=["key"],
                                     device=dev))
+
+
+def test_warmup_launches_each_kernel_once_per_entry(card):
+    """kernels.warmup on the card: the library loads, and each requested
+    (kernel, dtype, width) is one launch of that kernel."""
+    ck.reset_launches()
+    count = ck.warmup(ops=tuple(ck.LAUNCHES), n_blocks=257)
+    n_widths = sum(layout.bit_width(dt) for dt in layout.DTYPES)
+    assert count == len(ck.LAUNCHES) * n_widths
+    assert ck.LAUNCHES == {name: n_widths for name in ck.LAUNCHES}
+    assert ck.LAUNCHES_BY_DTYPE == {(name, dt): layout.bit_width(dt)
+                                    for name in ck.LAUNCHES for dt in layout.DTYPES}
