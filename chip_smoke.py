@@ -69,7 +69,12 @@ of every dtype at a size whose bytes bound is at least 0.1 ms, the group
 accumulator with and without its spread copies, and each read, encode, scan,
 aggregation and query end to end (a query also in rows out per second). On every driven path, each (kernel,
 dtype) pair is held against its plain version on the tensors of its largest
-launch there, and the `kernels` line counts the launches by dtype.
+launch there, and the `kernels` line counts the launches by dtype. The
+`kernels_by_width` line times every (kernel, dtype, width) the paths
+launched (at most 60, the widths of the most launches first), each held bit
+for bit against its plain version first: at a bytes bound of at least
+0.1 ms beside a clone, and at the median block count the paths gave it,
+with launches x (ms - bound) there.
 
 Needs one CUDA device and nvcc; it never runs on the CPU. Every phase prints
 one JSON line; any failed phase raises and the exit code is not 0. The last
@@ -553,30 +558,61 @@ class largest_launches:
     tensor, base, reference, width and dtype of that launch (the zigzag form
     of delta_pack_orig under `delta_pack_orig_zigzag`). With `per_dtype`
     the largest launch of every (kernel, dtype) pair is kept, under
-    `seen[name, dtype]`."""
+    `seen[name, dtype]`. `launched` lists every launch made since the last
+    reset of the launch counts, in order (a call that launches nothing is
+    left out): see `by_width`."""
 
     def __init__(self, per_dtype: bool = False):
         self.seen = {}
         self.per_dtype = per_dtype
+        self.launched = []
+
+    def by_width(self, counted: dict) -> dict:
+        """{(name, dtype, width): {"blocks": [...], "forms": {(base form,
+        reference form): n}}} over the first `counted[kernel]` launches of
+        each kernel: the launches a path counted before it read its counts
+        (a path checks its results after that, with more launches)."""
+        out, seen = {}, {}
+        for kernel, name, dtype, width, blocks, form in self.launched:
+            seen[kernel] = seen.get(kernel, 0) + 1
+            if seen[kernel] > counted.get(kernel, 0):
+                continue
+            rec = out.setdefault((name, dtype, width), {"blocks": [], "forms": {}})
+            rec["blocks"].append(blocks)
+            rec["forms"][form] = rec["forms"].get(form, 0) + 1
+        short = {k: n for k, n in counted.items() if seen.get(k, 0) < n}
+        if short:
+            raise AssertionError(f"launches counted but not seen by the hook: {short}")
+        return out
 
     def __enter__(self):
         self.real = ck._launch
 
         def spy(name, src2d, base, reference, width, dtype, zigzag=False):
             size = src2d.numel() * src2d.element_size()
-            key = name + "_zigzag" if zigzag else name
-            if self.per_dtype:
-                key = (key, dtype)
+            kname = name + "_zigzag" if zigzag else name
+            key = (kname, dtype) if self.per_dtype else kname
             if key not in self.seen or size > self.seen[key]["src_bytes"]:
                 self.seen[key] = {"src": src2d, "base": base, "reference": reference,
                                   "width": width, "dtype": dtype, "src_bytes": size}
-            return self.real(name, src2d, base, reference, width, dtype, zigzag=zigzag)
+            before = ck.LAUNCHES[name]
+            out = self.real(name, src2d, base, reference, width, dtype, zigzag=zigzag)
+            if ck.LAUNCHES[name] != before:
+                form = (operand_form(base, "base"), operand_form(
+                    reference if name in ("unfor_pack", "for_pack") else None, "reference"))
+                self.launched.append((name, kname, dtype, width, src2d.shape[0], form))
+            return out
 
-        ck._launch = spy
+        def reset():  # the counts restart: so does the list
+            self.launched.clear()
+            self.real_reset()
+
+        self.real_reset = ck.reset_launches
+        ck._launch, ck.reset_launches = spy, reset
         return self.seen
 
     def __exit__(self, *exc):
-        ck._launch = self.real
+        ck._launch, ck.reset_launches = self.real, self.real_reset
         return False
 
 
@@ -805,6 +841,17 @@ def phase_transposed(encode_state: dict) -> dict:
 
 # ---------------------------------------------------------------------------
 # float columns, tables, many files, scans (tolerance 0 throughout)
+
+
+def operand_form(operand, role: str):
+    """How a launch took its base or reference (`role`): None, "scalar" (a
+    Python int reference), "shared" (one (LANES,) base for every block) or
+    "per block" (a (B, LANES) base, a (B,) reference)."""
+    if operand is None:
+        return None
+    if not isinstance(operand, torch.Tensor):
+        return "scalar"
+    return "shared" if role == "base" and operand.ndim == 1 else "per block"
 
 
 def sync_if_cuda(device) -> None:
@@ -2607,6 +2654,174 @@ def dtype_rows_at_bound(rng, bound_ms: float = 0.1) -> list:
     return rows
 
 
+#: at most this many (kernel, dtype, width) triples are timed; past it each
+#: (kernel, dtype) keeps its widths of the most launches, in turns
+MAX_WIDTH_TRIPLES = 60
+
+
+#: the kernels that take a base: (B, LANES) per block or (LANES,) shared
+DELTA_KERNELS = ("undelta_pack", "unzdelta_pack", "undelta_pack_orig", "unzdelta_pack_orig",
+                 "delta_pack")
+
+
+def width_bytes(name, dtype, width, blocks, forms) -> int:
+    """The bytes kernel `name` must move at `blocks` blocks: its source and
+    its output once each, its base or per-block references once (a shared
+    base once in all), delta_pack_orig's base written."""
+    kernel = name[:-len("_zigzag")] if name.endswith("_zigzag") else name
+    t, nl = layout.bit_width(dtype), layout.lanes(dtype)
+    moved = (layout.BLOCK + layout.packed_len(dtype, width)) * t // 8 * blocks
+    if kernel in ("unfor_pack", "for_pack"):
+        moved += blocks * t // 8 if forms[1] == "per block" else 0
+    elif kernel == "delta_pack_orig":
+        moved += blocks * nl * t // 8
+    elif kernel in DELTA_KERNELS:
+        moved += (nl if forms[0] == "shared" else blocks * nl) * t // 8
+    return moved
+
+
+def width_inputs(rng, name, dtype, width, blocks, forms):
+    """Seeded inputs of kernel `name` on the card at `blocks` blocks: (src,
+    param). A 1024-block pattern repeated (the host makes little); base and
+    reference in the form `forms` ((base form, reference form), as
+    `operand_form` names them); the zigzag form of delta_pack_orig under the
+    name `delta_pack_orig_zigzag`."""
+    zigzag = name.endswith("_zigzag")
+    kernel = name[:-len("_zigzag")] if zigzag else name
+    t, nl, np_dt = layout.bit_width(dtype), layout.lanes(dtype), layout.np_dtype(dtype)
+    reps = -(-blocks // 1024)
+
+    def seeded(*shape):
+        raw = rng.integers(0, 1 << min(t, 63), size=shape, dtype=np.uint64)
+        return torch.from_numpy(raw.astype(np_dt)).cuda()
+
+    cols = layout.BLOCK if kernel in ENCODE_KERNELS else layout.packed_len(dtype, width)
+    src = seeded(1024, cols).repeat(reps, 1)[:blocks]
+    param = None
+    if kernel in ("unfor_pack", "for_pack"):
+        param = seeded(1024).repeat(reps)[:blocks] if forms[1] == "per block" \
+            else int(rng.integers(0, 1 << min(t, 63)))
+    elif kernel == "delta_pack_orig":
+        param = zigzag
+    elif kernel in DELTA_KERNELS:
+        param = seeded(nl) if forms[0] == "shared" else seeded(1024, nl).repeat(reps, 1)[:blocks]
+    return src, param
+
+
+def launched_widths(by_path: dict):
+    """Every (kernel, dtype, width) the driven paths launched: {triple:
+    {"launches", "blocks" (every launch's), "forms"}} over all paths, and
+    the triples to time: all of them, or past MAX_WIDTH_TRIPLES the widths
+    of the most launches of each (kernel, dtype), taken in turns."""
+    merged = {}
+    for recs in by_path.values():
+        for key, rec in recs.items():
+            m = merged.setdefault(key, {"blocks": [], "forms": {}})
+            m["blocks"] += rec["blocks"]
+            for form, n in rec["forms"].items():
+                m["forms"][form] = m["forms"].get(form, 0) + n
+    for m in merged.values():
+        m["launches"] = len(m["blocks"])
+    if len(merged) <= MAX_WIDTH_TRIPLES:
+        return merged, sorted(merged)
+    queues = {}
+    for key in sorted(merged, key=lambda k: -merged[k]["launches"]):
+        queues.setdefault(key[:2], []).append(key)
+    chosen = []
+    while len(chosen) < MAX_WIDTH_TRIPLES:
+        for queue in queues.values():
+            if queue and len(chosen) < MAX_WIDTH_TRIPLES:
+                chosen.append(queue.pop(0))
+    return merged, sorted(chosen)
+
+
+def kernels_by_width(by_path: dict, smi: str, rng, bound_ms: float = 0.1) -> dict:
+    """Every (kernel, dtype, width) the driven paths launched, timed at the
+    width the paths gave it: at a block count whose bytes bound is at least
+    `bound_ms` (the share of the bound beside a clone of the values in the
+    same call; the whole output first held bit for bit against the plain
+    version), and at the median block count the paths launched it with,
+    where `launches x (ms - bound)` is the time the paths could have saved
+    (ms by CUDA events around back-to-back launches: at a small block count
+    the host's launch cost; the profiler's device time beside it). Per
+    (kernel, dtype): the lowest share over its widths and the summed gap,
+    ranked by the gap."""
+    t0 = time.perf_counter()
+    merged, chosen = launched_widths(by_path)
+    rows = []
+    for key in chosen:
+        name, dtype, width = key
+        rec = merged[key]
+        forms = max(rec["forms"], key=rec["forms"].get)
+        kernel = name[:-len("_zigzag")] if name.endswith("_zigzag") else name
+        block_bytes = width_bytes(name, dtype, width, 1, forms)
+        big = -(-int(bound_ms * 1e-3 * HBM_BYTES_PER_S / block_bytes) // 1024) * 1024
+        src, param = width_inputs(rng, name, dtype, width, big, forms)
+        got = call_kernel(kernel, src, param, width, dtype)
+        want = call_kernel(kernel, src, param, width, dtype, plain=True)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if err != 0.0:
+            raise AssertionError(f"{name} {dtype} W={width} at {big} blocks differs from "
+                                 f"its plain version: max_abs_err={err}")
+        values = src if kernel in ENCODE_KERNELS else got
+        del want
+        ms = time_cuda(lambda: call_kernel(kernel, src, param, width, dtype), 10, inner=10)
+        clone_ms = time_cuda(lambda: torch.clone(values), 10, inner=10)
+        moved = width_bytes(name, dtype, width, big, forms)
+        bound = moved / HBM_BYTES_PER_S * 1e3
+        clone_rate = 2 * values.numel() * values.element_size() / (clone_ms * 1e-3)
+        del got, values
+        median_blocks = int(statistics.median_low(rec["blocks"]))
+        if median_blocks <= big:
+            m_src = src[:median_blocks]
+            m_param = param[:median_blocks] if isinstance(param, torch.Tensor) and \
+                param.shape[0] == big else param
+        else:
+            m_src, m_param = width_inputs(rng, name, dtype, width, median_blocks, forms)
+        m_ms = time_cuda(lambda: call_kernel(kernel, m_src, m_param, width, dtype), 10,
+                         inner=10)
+        # the device's own time for those launches, from the profiler: where
+        # it is far below m_ms, the host's launch cost sets the pace
+        busy, _ = device_busy_ms(
+            lambda: [call_kernel(kernel, m_src, m_param, width, dtype) for _ in range(10)])
+        m_bound = width_bytes(name, dtype, width, median_blocks, forms) / HBM_BYTES_PER_S * 1e3
+        rows.append({
+            "kernel": name, "dtype": dtype, "width": width, "launches": rec["launches"],
+            "forms": {"base": forms[0], "reference": forms[1]},
+            "blocks": big, "max_abs_err": err, "ms": ms, "bound_ms": bound,
+            "share_of_bound": bound / ms, "clone_ms": clone_ms,
+            "share_of_clone": moved / clone_rate * 1e3 / ms,
+            "median_blocks": median_blocks, "max_blocks": max(rec["blocks"]),
+            "ms_at_median": m_ms, "bound_ms_at_median": m_bound,
+            "device_ms_at_median": None if busy is None else busy / 10,
+            "launches_x_gap_ms": rec["launches"] * (m_ms - m_bound)})
+        del src, param, m_src, m_param
+    pairs = {}
+    for row in rows:
+        p = pairs.setdefault(f"{row['kernel']}[{row['dtype']}]", {
+            "lowest_share_of_bound": math.inf, "at_width": None, "launches": 0,
+            "launches_x_gap_ms": 0.0})
+        if row["share_of_bound"] < p["lowest_share_of_bound"]:
+            p["lowest_share_of_bound"], p["at_width"] = row["share_of_bound"], row["width"]
+        p["launches"] += row["launches"]
+        p["launches_x_gap_ms"] += row["launches_x_gap_ms"]
+    ranked = dict(sorted(pairs.items(), key=lambda kv: -kv[1]["launches_x_gap_ms"]))
+    dropped = [k for k in merged if k not in chosen]
+    return {"phase": "kernels_by_width", "card": smi, "bound_rate_Bps": HBM_BYTES_PER_S,
+            "bound_at_least_ms": bound_ms, "triples_launched": len(merged),
+            "triples_timed": len(rows),
+            "collapsed": None if not dropped else {
+                "rule": f"over {MAX_WIDTH_TRIPLES} triples: the widths of the most "
+                        "launches of each (kernel, dtype), in turns",
+                "triples_left_out": len(dropped),
+                "launches_left_out": sum(merged[k]["launches"] for k in dropped)},
+            "under_half_of_bound": [f"{r['kernel']}[{r['dtype']}] W={r['width']}"
+                                    for r in rows if r["share_of_bound"] < 0.5],
+            "by_kernel_dtype": ranked, "rows": rows,
+            "seconds": time.perf_counter() - t0}
+
+
 def timed_entry(fn, reps: int = 3) -> dict:
     """wall_and_busy of `fn` (which ends in a synchronise) plus the launches,
     gather passes and host fetches of one call."""
@@ -2817,13 +3032,15 @@ def main() -> int:
         # every path is driven with the launch counts set to 0 just before it
         # and read just after; then every (kernel, dtype) shape the path
         # launched is held against the plain version on the same tensors
-        by_path, dtypes_by_path, shapes_by_path = {}, {}, {}
+        by_path, dtypes_by_path, shapes_by_path, widths_by_path = {}, {}, {}, {}
 
         def drive(path_name, phase, needs):
-            with largest_launches(per_dtype=True) as seen:
+            hook = largest_launches(per_dtype=True)
+            with hook as seen:
                 state = phase()
             by_path[path_name] = state["launches"]
             dtypes_by_path[path_name] = state["by_dtype"]
+            widths_by_path[path_name] = hook.by_width(state["launches"])
             if any(sum(state["by_dtype"].get(k, {}).values()) != n
                    for k, n in state["launches"].items()):
                 raise AssertionError(f"the {path_name} path's launches by dtype "
@@ -2871,6 +3088,8 @@ def main() -> int:
                             queries["rows_out"])
         if [row["name"] for row in rows] != list(KERNELS):
             raise AssertionError(f"kernel rows: {[row['name'] for row in rows]}")
+        emit(kernels_by_width(widths_by_path, info["nvidia_smi"],
+                              np.random.default_rng(SEED + 11)))
     for row in rows:
         # the count over every driven path, by dtype, and path by path beside
         # the shapes held there; `shape`, `ms` and the bounds are those of the

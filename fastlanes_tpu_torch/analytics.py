@@ -1273,9 +1273,7 @@ def _stats_summary(paths, column):
                 p, column)
         except (ValueError, KeyError):
             return None
-        n_rows = (n_values if n_values is not None
-                  else sum(m["n_blocks"] for m in chunks) * layout.BLOCK)
-        total += n_rows - (int(nulls["n_null"]) if nulls else 0)
+        total += _n_rows(chunks, n_values) - (int(nulls["n_null"]) if nulls else 0)
         for m in chunks:
             st = m.get("stats")
             if not isinstance(st, dict):
@@ -1432,10 +1430,19 @@ def distinct(path, column: Optional[str] = None) -> np.ndarray:
     return merged
 
 
+def _n_rows(chunks, n_values) -> int:
+    return (n_values if n_values is not None
+            else sum(c["n_blocks"] for c in chunks) * layout.BLOCK)
+
+
 def _all_null(chunks, n_values, nulls_meta) -> bool:
-    total = (n_values if n_values is not None
-             else sum(c["n_blocks"] for c in chunks) * layout.BLOCK)
-    return nulls_meta["n_null"] >= total
+    return nulls_meta["n_null"] >= _n_rows(chunks, n_values)
+
+
+def _holds_a_value(chunks, n_values, nulls_meta) -> bool:
+    """True if the column has a non-null row: neither 0 rows nor all null."""
+    n_null = nulls_meta["n_null"] if nulls_meta is not None else 0
+    return _n_rows(chunks, n_values) > n_null
 
 
 def value_counts(path, column: Optional[str] = None,
@@ -1465,9 +1472,9 @@ def value_counts(path, column: Optional[str] = None,
         chunks, cdtype, _t, vtype, n_values, _b, nulls_meta = _column_layout(
             path, column)
         # the refusals, from the header: the reference finds the same dtype
-        # after a host pass over the whole column (an all-null column has
-        # the carrier's dtype there)
-        if nulls_meta is None or not _all_null(chunks, n_values, nulls_meta):
+        # after a host pass over the whole column (a 0-row or all-null
+        # column has the carrier's dtype there)
+        if _holds_a_value(chunks, n_values, nulls_meta):
             if vtype in ("f32", "f64"):
                 raise ValueError("value_counts over float columns is "
                                  "ill-defined; use group_stats or top_k")

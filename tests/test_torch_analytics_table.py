@@ -91,26 +91,31 @@ def test_lockstep_window_is_a_module_constant():
 
 
 @pytest.fixture(scope="module")
-def shards(tmp_path_factory):
-    """A dataset in three shard files and three shard tables."""
+def shards(tmp_path_factory, table):
+    """A dataset in three shard files and three shard tables. The tables are
+    the module table's three chunks, one each, so the JAX side decodes them
+    with the programs it compiled for that table."""
     rng = np.random.default_rng(0x5AD)
     root = tmp_path_factory.mktemp("shards")
     files = {"u32": [], "f64": [], "nullable": [], "table": []}
+    cols_all, _ = table
     for i in range(3):
         n = 2048 + 100 * i
-        for kind, values in (
-                ("u32", rng.integers(0, 1 << 32, n).astype(np.uint32)),
-                ("f64", np.round(rng.uniform(-9e6, 9e6, n), 3)),
+        for kind, values, chunk_blocks in (
+                ("u32", rng.integers(0, 1 << 32, n).astype(np.uint32), 1),
+                # one chunk a file: the reference decodes f64 eagerly, a
+                # chunk at a time
+                ("f64", np.round(rng.uniform(-9e6, 9e6, n), 3), 1024),
                 ("nullable", np.ma.MaskedArray(rng.integers(0, 50, n).astype(np.uint16),
-                                               mask=rng.random(n) < 0.2 * i))):
+                                               mask=rng.random(n) < 0.2 * i), 1)):
             path = str(root / f"{kind}{i}.flt")
-            tfio.write_file(path, values, chunk_blocks=1)
+            tfio.write_file(path, values, chunk_blocks=chunk_blocks)
             files[kind].append(path)
         path = str(root / f"t{i}.flt")
-        cols = table_columns(rng, n)
+        cols = {name: col[2048 * i:2048 * (i + 1)] for name, col in cols_all.items()}
         if i == 2:  # this shard's dictionary lacks a word and has another
             cols["cur"] = np.where(cols["cur"] == "GBP", "AUD", cols["cur"])
-        ttab.write_table(path, cols, chunk_blocks=1)
+        ttab.write_table(path, cols, chunk_blocks=2)
         files["table"].append(path)
     return files
 

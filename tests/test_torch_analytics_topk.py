@@ -77,12 +77,15 @@ def files(tmp_path_factory):
                                         mask=rng.random(n - 77) < 0.3), {}),
         "nan_f32": (np.where(rng.random(n) < 0.01, np.float32(np.nan),
                              rng.normal(0, 100, n).astype(np.float32)).astype(np.float32), {}),
-        "wide_u32": (rng.integers(0, 1 << 30, 70_000).astype(np.uint32), {}),
+        # more distinct values than value_counts' cap, in one chunk: each
+        # step of the reference's binary search decodes every chunk
+        "wide_u32": (rng.integers(0, 1 << 30, 70_000).astype(np.uint32),
+                     {"chunk_blocks": 1024}),
     }
     out = {}
     for name, (values, kw) in cases.items():
         path = str(root / f"{name}.flt")
-        tfio.write_file(path, values, chunk_blocks=1, **kw)
+        tfio.write_file(path, values, **{"chunk_blocks": 1, **kw})
         out[name] = (path, values)
     return out
 
@@ -132,6 +135,39 @@ def test_value_counts_caps_and_refusals(table, files):
             mod.value_counts(path, "key", **kw)
         with pytest.raises(ValueError, match="max_values"):
             mod.value_counts(files["wide_u32"][0], **kw)
+
+
+EMPTY_FLOAT_COLUMNS = {
+    "zero_rows_f32": (np.ones(0, np.float32), {}),  # the reference's distinct: uint32 (0,)
+    "zero_rows_f64": (np.ones(0, np.float64), ValueError),  # uint64 (0,): the 64-bit refusal
+    "all_null_f32": (np.ma.MaskedArray(np.ones(1100, np.float32), mask=np.ones(1100, bool)),
+                     {}),
+}
+
+
+@pytest.mark.parametrize("kind", ["table", "file"])
+@pytest.mark.parametrize("name", sorted(EMPTY_FLOAT_COLUMNS))
+def test_value_counts_of_a_float_column_without_values(tmp_path, name, kind):
+    """A float column with no non-null value reaches the refusals only
+    through its (integer) distinct set, as in the reference: 0-row and
+    all-null f32 count nothing, 0-row f64 meets the 64-bit refusal."""
+    values, expected = EMPTY_FLOAT_COLUMNS[name]
+    path = str(tmp_path / "t.flt")
+    if kind == "table":
+        ttab.write_table(path, {"x": values})
+        column = "x"
+    else:
+        tfio.write_file(path, values)
+        column = None
+    if expected is ValueError:
+        for call in (lambda: jan.value_counts(path, column),
+                     lambda: tan.value_counts(path, column, device="cpu")):
+            with pytest.raises(ValueError, match="64-bit"):
+                call()
+        return
+    want = jan.value_counts(path, column)
+    assert want == expected
+    assert_same(tan.value_counts(path, column, device="cpu"), want)
 
 
 @pytest.mark.parametrize("largest", [True, False])
