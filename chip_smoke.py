@@ -4,8 +4,11 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from csrc/ with nvcc, holds each of the eleven against
-its plain PyTorch version on the card (bit for bit), then drives the port's
-main paths. The device-side column read: FLT files of every integer codec
+its plain PyTorch version on the card (bit for bit; the u32/u64
+original-order decode also at the edges of its grid: W = 0, 1, a middle
+width, T - 1, T; 1, NB - 1, NB + 1, 2 NB + 1 and 257 blocks; shared and
+per-block bases over all T bits), then drives the port's main paths. The
+device-side column read: FLT files of every integer codec
 are written with the port's host writer from seeded numpy data, read back
 with `read_file_device` / `read_blocks_device` on the GPU and compared bit
 for bit with the host reader. The device-side column encode: the same columns,
@@ -356,6 +359,9 @@ def phase_kernels(rng) -> dict:
                         raise AssertionError(
                             f"kernel {name} disagrees with its plain version: "
                             f"{dtype} W={width} B={CHECK_BLOCKS} max_abs_err={err}")
+    edges = hold_orig_edges(values_rng)
+    for name, err in edges["max_abs_err"].items():
+        worst[name] = max(worst[name], err)
     # an empty batch launches nothing and keeps its shape
     before = dict(ck.LAUNCHES)
     empty = ck.unpack(torch.empty((0, 96), dtype=torch.uint32, device="cuda"), 3, "u32")
@@ -383,8 +389,46 @@ def phase_kernels(rng) -> dict:
             and ck.LAUNCHES["unpack"] == before["unpack"] + 1 and same(back, probe)):
         raise AssertionError("fastlanes_tpu_torch.pack / .unpack did not launch the kernels")
     emit({"phase": "kernels", "tolerance": 0, "blocks": CHECK_BLOCKS,
-          "cases": cases, "max_abs_err": worst})
+          "cases": cases, "max_abs_err": worst, "orig_edges": edges})
     return worst
+
+
+def hold_orig_edges(rng) -> dict:
+    """The original-order decode of u32 and u64 (`decode_orig_kernel`) bit
+    for bit against its plain versions at its edge shapes: W = 0, 1, a
+    middle width, T - 1 and T; one block, NB - 1 and NB + 1 blocks (a ragged
+    group), 2 * NB + 1 and CHECK_BLOCKS; a per-block base and a shared one
+    (base stride 0), each drawn over all T bits."""
+    worst = dict.fromkeys(ORIG_DECODE_KERNELS, 0.0)
+    cases = 0
+    for dtype, nb in ck.ORIG_DECODE_BLOCKS_PER_CTA.items():
+        t, nl, np_dt = layout.bit_width(dtype), layout.lanes(dtype), layout.np_dtype(dtype)
+
+        def draw(*shape):
+            return torch.from_numpy(rng.integers(
+                0, 1 << t, size=shape, dtype=np.uint64).astype(np_dt)).cuda()
+
+        for width in (0, 1, t // 2 + 3, t - 1, t):
+            for blocks in sorted({1, nb - 1, nb + 1, 2 * nb + 1, CHECK_BLOCKS}):
+                packed = draw(blocks, layout.packed_len(dtype, width))
+                per_block = draw(blocks, nl)
+                for name, param in (("unpack_orig", None),
+                                    ("undelta_pack_orig", per_block),
+                                    ("undelta_pack_orig", per_block[-1].clone()),
+                                    ("unzdelta_pack_orig", per_block),
+                                    ("unzdelta_pack_orig", per_block[-1].clone())):
+                    got = call_kernel(name, packed, param, width, dtype)
+                    want = call_kernel(name, packed, param, width, dtype, plain=True)
+                    torch.cuda.synchronize()
+                    err = max_abs_err(got, want)
+                    worst[name] = max(worst[name], err)
+                    cases += 1
+                    if err != 0.0:
+                        raise AssertionError(
+                            f"{name} {dtype} W={width} B={blocks} base "
+                            f"{None if param is None else tuple(param.shape)} disagrees "
+                            f"with its plain version: max_abs_err={err}")
+    return {"cases": cases, "max_abs_err": worst}
 
 
 def make_columns(rng, scale: int) -> dict:

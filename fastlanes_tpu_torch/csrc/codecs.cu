@@ -58,10 +58,14 @@
 // sector; the thread pair (2p, 2p+1) swaps halves with one shuffle per word,
 // so that in each 16-byte access the pair covers both halves of the same lane
 // and the warp covers four 128-byte lines. Nothing is staged and no thread
-// waits at a barrier. u32/u64 keep decode_orig_kernel and encode_orig_kernel:
-// a lane's 32 (64) rows are 128 (512) bytes, which a thread cannot move as a
-// whole, so those kernels stage the block in shared memory and move it with
-// consecutive threads on consecutive words.
+// waits at a barrier. For u32/u64 a lane's 32 (64) rows are 128 (512) bytes,
+// which one thread cannot move as a whole. decode_orig_kernel is
+// output-stationary: a CUDA block copies its blocks' packed words into
+// shared memory lane-major, each thread computes 4 rows of one lane straight
+// from them and stores them as 16-byte runs, and a lane's running sum is a
+// scan over its threads. encode_orig_kernel stages the block's values in
+// shared memory and moves them in with consecutive threads on consecutive
+// words.
 //
 // The bit width W is a run-time argument (one instantiation per dtype, op
 // and order). A shift by T is undefined in C++, so the W-bit mask, the
@@ -174,16 +178,16 @@ struct Lanes {
     }
 };
 
-// Where original order keeps a lane's rows (seg, every dtype), and the shapes
-// of the staged original-order kernels of u32/u64 (decode_orig_kernel,
-// encode_orig_kernel). A CUDA block of THREADS threads holds NB FastLanes
-// blocks in shared memory, each as LANES segments of T values padded by one
-// element (SEG_PITCH = T + 1): with that pitch neither the lane-major
-// accesses of the row loop (a warp touches one row of 32 segments) nor the
-// row-major accesses of the copy (a warp walks along segments) meet in one
-// bank. u64 takes 64 threads so that the stage stays at 33 KB; u32 takes 256
-// (33.8 KB). The copy moves one value of 4 or 8 bytes a step, so a warp
-// moves 128 bytes or more per instruction.
+// Where original order keeps a lane's rows (seg, every dtype), and the shape
+// of the staged original-order encode of u32/u64 (encode_orig_kernel). A
+// CUDA block of THREADS threads holds NB FastLanes blocks in shared memory,
+// each as LANES segments of T values padded by one element
+// (SEG_PITCH = T + 1): with that pitch neither the lane-major reads of the
+// row loop (a warp touches one row of 32 segments) nor the row-major writes
+// of the copy (a warp walks along segments) meet in one bank. u64 takes 64
+// threads so that the stage stays at 33 KB; u32 takes 256 (33.8 KB). The
+// copy moves one value of 4 or 8 bytes a step, so a warp moves 128 bytes or
+// more per instruction.
 template <typename T>
 struct Orig {
     static constexpr int TBITS = sizeof(T) * 8;
@@ -213,12 +217,6 @@ struct StoreTransposed {  // out + b*1024 + PER*q: one row = 128 contiguous byte
     __device__ __forceinline__ void operator()(int r, V v) {
         o[row_offset(r) / Lanes<T>::PER] = v;
     }
-};
-
-template <typename T>
-struct StoreStaged {  // the lane's segment in shared memory (PER = 1)
-    T* s;
-    __device__ __forceinline__ void operator()(int r, T v) { s[r] = v; }
 };
 
 template <typename T>
@@ -441,39 +439,185 @@ decode_kernel(const T* __restrict__ packed, T* __restrict__ out,
     }
 }
 
-// Original-order decode of u32/u64 through shared memory: the row loop of
-// decode_kernel writes each lane's T rows into its segment of the stage;
-// after the barrier consecutive threads store consecutive words of the NB
-// blocks' contiguous output. No thread leaves before the barrier: those of a
-// ragged last CUDA block skip the row loop and the copy stops at the last
-// live block.
+// The shape of the output-stationary original-order decode (decode_orig_kernel):
+// NB FastLanes blocks a CUDA block of THREADS threads, ROWS rows of one lane a
+// thread, TPL threads a lane. A thread's rows leave in NS 16-byte stores of
+// VEC consecutive values; store s of thread j holds rows
+// s * (T / NS) + VEC * j + i, i < VEC, so that for each s the TPL threads of a
+// lane store one contiguous run of its segment: u64 (TPL 16, NS 2) two runs
+// of 256 bytes a lane, u32 (TPL 8, NS 1) the lane's whole 128 bytes.
+// The packed words of each block wait in shared memory LANE-major, PITCH
+// words a lane: 16.6 KB (u64) or 16.9 KB (u32) for the NB blocks.
+template <typename T>
+struct OrigOut {
+    static constexpr int TBITS = sizeof(T) * 8;
+    static constexpr int LANES = 1024 / TBITS;
+    static constexpr int THREADS = 256;
+    static constexpr int NB = 16 / (int)sizeof(T);
+    static constexpr int ROWS = 1024 / THREADS;
+    static constexpr int TPL = TBITS / ROWS;
+    static constexpr int VEC = 16 / (int)sizeof(T);
+    static constexpr int NS = ROWS / VEC;
+    static constexpr int PITCH = TBITS + 1;
+    static constexpr int COPIES = 1024 / THREADS;  // a thread's copies of a block's words
+    static constexpr int MIN_CTAS = 8;             // 32 registers a thread: 64 warps an SM
+
+    __host__ __device__ static constexpr int row(int s, int j, int i) {
+        return s * (TBITS / NS) + VEC * j + i;
+    }
+};
+
+// Bits [s, s + T) of the word pair hi:lo, s in [0, T): one funnel shift for
+// u32; for u64 the high word is shifted up in two steps, so that s = 0 shifts
+// it out whole instead of by T.
+__device__ __forceinline__ uint32_t funnel_right(uint32_t lo, uint32_t hi, int s) {
+    return __funnelshift_r(lo, hi, s);
+}
+__device__ __forceinline__ uint64_t funnel_right(uint64_t lo, uint64_t hi, int s) {
+    return (lo >> s) | ((hi << 1) << (63 - s));
+}
+
+// Row r of a lane whose W-bit rows lie in the words s[0..W): bits
+// [r*W, r*W + W) of the lane's bit stream, which end in s[k] or s[k + 1].
+// s[k + 1] is read whether the row reaches it or not (the mask cuts what it
+// does not): a word past the lane's W, or the pitch's pad, is read but never
+// used, so no row branches.
+template <typename T>
+__device__ __forceinline__ T row_bits(const T* s, int r, int width, T mask) {
+    constexpr int TBITS = sizeof(T) * 8;
+    const int bit = r * width;
+    const int k = bit / TBITS;
+    return T(funnel_right(s[k], s[k + 1], bit % TBITS) & mask);
+}
+
+__device__ __forceinline__ void store16(uint32_t* p, const uint32_t (&v)[4]) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store16(uint64_t* p, const uint64_t (&v)[2]) {
+    *reinterpret_cast<ulonglong2*>(p) = make_ulonglong2(v[0], v[1]);
+}
+
+// One word from global to shared memory without a register: cp.async of
+// sizeof(T) bytes (4 or 8), completed by cp_async_wait_all.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src),
+                 "n"(sizeof(T)) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// One FastLanes block of decode_orig_kernel: thread (lane, j) of the block
+// whose words lie lane-major at `words`, its lane's base `carry`, its
+// output `o` (the block's first value).
 template <typename T, int OP>
-__global__ void __launch_bounds__(Orig<T>::THREADS)
+__device__ __forceinline__ void decode_orig_block(const T* __restrict__ words, T* __restrict__ o,
+                                                  T carry, int width, T mask) {
+    using L = OrigOut<T>;
+    const int lane = threadIdx.x / L::TPL;
+    const int j = threadIdx.x % L::TPL;
+    const T* s = words + lane * L::PITCH;
+    T v[L::NS][L::VEC];
+#pragma unroll
+    for (int n = 0; n < L::NS; ++n) {
+#pragma unroll
+        for (int i = 0; i < L::VEC; ++i) {
+            T x = width > 0 ? row_bits(s, L::row(n, j, i), width, mask) : T(0);
+            if (OP == OP_UNZDELTA) x = Lanes<T>::unzigzag(x);
+            v[n][i] = x;
+        }
+    }
+    if (OP == OP_UNDELTA || OP == OP_UNZDELTA) {
+#pragma unroll
+        for (int n = 0; n < L::NS; ++n) {
+            T part = T(0);
+#pragma unroll
+            for (int i = 0; i < L::VEC; ++i) part += v[n][i];
+            T incl = part;
+#pragma unroll
+            for (int d = 1; d < L::TPL; d *= 2) {
+                const T up = __shfl_up_sync(0xffffffffu, incl, d, L::TPL);
+                if (j >= d) incl += up;
+            }
+            T run = T(carry + (incl - part));
+#pragma unroll
+            for (int i = 0; i < L::VEC; ++i) {
+                run += v[n][i];
+                v[n][i] = run;
+            }
+            carry += __shfl_sync(0xffffffffu, incl, L::TPL - 1, L::TPL);
+        }
+    }
+    o += Orig<T>::seg(lane) * L::TBITS;
+#pragma unroll
+    for (int n = 0; n < L::NS; ++n) store16(o + L::row(n, j, 0), v[n]);
+}
+
+// Original-order decode of u32 and u64 (replaces _kernel_pD :164, _kernel_pE
+// :171 and _kernel_pG :267 of benchmarks/exp_untranspose_pallas.py, and the
+// zigzag hook of pallas_codecs.py:841). Bytes bound it: a block moves 128*W
+// packed and 128*T output bytes (and LANES*T/8 of base) for a few integer
+// operations a value. A CUDA block of 256 threads decodes NB blocks (u64 2,
+// u32 4) out of 16.9 KB (u32: 17.4 KB) of shared memory with 32 registers a
+// thread, so an SM holds 8 CUDA blocks (64 warps) at every W.
+//  1. Every thread puts its packed words of all NB blocks (at most 4 a block)
+//     and, for the delta ops, one base word in flight at once with cp.async
+//     before it waits on any: word LANES*k + lane of block fb goes to
+//     words[fb][lane*PITCH + k]. A warp's copies read 32 contiguous words
+//     and, the pitch being odd, take the fewest wavefronts that many bytes
+//     need. No global load is left after the one barrier.
+//  2. Output-stationary: thread (lane, j) computes its ROWS rows of each
+//     block straight from the words (row_bits: two shared loads, a funnel
+//     shift, a mask; no branch), so no thread walks a lane's T rows in a
+//     chain and no value is staged. At most four distinct words meet in one
+//     bank (pair) in a warp's row loads: u64 two up to W = 33, u32 one at
+//     W = 1 and W = 32.
+//  3. Undelta / unzdelta: the running sum of the lane is a scan over its TPL
+//     threads (__shfl_up_sync within TPL), one per store run, the run's total
+//     carried into the next and the base into the first.
+//  4. Each store run of a lane is contiguous in original order (seg(lane)),
+//     so a warp's 16-byte stores cover whole 128-byte lines.
+// The ragged last CUDA block copies and decodes its live blocks only; every
+// thread reaches the one barrier.
+template <typename T, int OP>
+__global__ void __launch_bounds__(OrigOut<T>::THREADS, OrigOut<T>::MIN_CTAS)
 decode_orig_kernel(const T* __restrict__ packed, T* __restrict__ out,
                    const T* __restrict__ base, long long base_stride,
                    long long n_blocks, int width) {
-    using L = Orig<T>;
-    static_assert(Lanes<T>::PER == 1, "u8/u16 decode to original order in decode_kernel");
-    __shared__ T stage[L::NB * L::BLOCK_PITCH];
+    using L = OrigOut<T>;
+    static_assert(L::TPL * L::LANES == L::THREADS && L::NS * L::VEC == L::ROWS, "shape");
+    static_assert(L::NB * L::LANES <= L::THREADS, "one base word a thread");
+    __shared__ T words[L::NB][L::LANES * L::PITCH];
+    __shared__ T bases[L::NB][L::LANES];
 
     const long long b0 = (long long)blockIdx.x * L::NB;
     const int live = (int)(n_blocks - b0 < L::NB ? n_blocks - b0 : L::NB);
-    const int fb = threadIdx.x / L::LANES;
-    const int lane = threadIdx.x % L::LANES;
-    if (fb < live) {
-        const long long b = b0 + fb;
-        T acc = T(0);
-        if (OP == OP_UNDELTA || OP == OP_UNZDELTA) acc = base[b * base_stride + lane];
-        StoreStaged<T> store{stage + fb * L::BLOCK_PITCH + L::seg(lane) * L::SEG_PITCH};
-        decode_rows<T, OP>(packed + b * ((long long)L::LANES * width) + lane, width, acc,
-                           T(0), store);
+    const int n_words = L::LANES * width;
+    if (OP != OP_UNPACK && threadIdx.x < L::NB * L::LANES) {
+        const int fb = threadIdx.x / L::LANES;
+        const int lane = threadIdx.x % L::LANES;
+        if (fb < live) cp_async(&bases[fb][lane], base + (b0 + fb) * base_stride + lane);
     }
+#pragma unroll
+    for (int fb = 0; fb < L::NB; ++fb) {
+        const T* src = packed + (b0 + fb) * n_words;
+#pragma unroll
+        for (int c = 0; c < L::COPIES; ++c) {
+            const int g = threadIdx.x + c * L::THREADS;
+            if (fb < live && g < n_words)
+                cp_async(&words[fb][(g % L::LANES) * L::PITCH + g / L::LANES], src + g);
+        }
+    }
+    cp_async_wait_all();
     __syncthreads();
 
-    T* o = out + b0 * 1024;
-    const int n_values = live * 1024;
-    for (int i = threadIdx.x; i < n_values; i += L::THREADS) {
-        o[i] = stage[L::staged(i / 1024, i % 1024)];
+    const T mask = width == L::TBITS ? T(~T(0)) : T((T(1) << width) - T(1));
+    const int lane = threadIdx.x / L::TPL;
+    for (int fb = 0; fb < live; ++fb) {
+        const T carry = OP == OP_UNPACK ? T(0) : bases[fb][lane];
+        decode_orig_block<T, OP>(words[fb], out + (b0 + fb) * 1024, carry, width, mask);
     }
 }
 
@@ -644,25 +788,27 @@ unsigned grid_of(long long n_blocks, int threads_per_block, int threads_per_cta)
 }
 
 // One launch of (direction, op, order) for dtype T: u8/u16 take both orders
-// in decode_kernel / encode_kernel, u32/u64 original order in the staged
-// kernels.
+// in decode_kernel / encode_kernel, u32/u64 original order in
+// decode_orig_kernel and encode_orig_kernel.
 template <bool ENCODE, int OP, int ORDER>
 struct Launch {
     template <typename T>
     static int run(const Job& j) {
         using L = Orig<T>;
-        constexpr bool staged = ORDER == ORDER_ORIG && Lanes<T>::PER == 1;
-        const unsigned grid = staged ? grid_of(j.n_blocks, L::LANES, L::THREADS)
-                                     : grid_of(j.n_blocks, Lanes<T>::THREADS, kThreads);
+        constexpr bool wide_orig = ORDER == ORDER_ORIG && Lanes<T>::PER == 1;
+        const unsigned grid =
+            wide_orig && ENCODE ? grid_of(j.n_blocks, L::LANES, L::THREADS)
+            : wide_orig         ? grid_of(j.n_blocks, 1, OrigOut<T>::NB)
+                                : grid_of(j.n_blocks, Lanes<T>::THREADS, kThreads);
         if (grid == 0) return (int)cudaErrorInvalidConfiguration;
         const T* src = (const T*)j.src;
         T* out = (T*)j.out;
         T* base = (T*)j.base;
-        if constexpr (staged && ENCODE) {
+        if constexpr (wide_orig && ENCODE) {
             encode_orig_kernel<T, OP><<<grid, L::THREADS, 0, j.stream>>>(
                 src, out, base, j.n_blocks, j.width);
-        } else if constexpr (staged) {
-            decode_orig_kernel<T, OP><<<grid, L::THREADS, 0, j.stream>>>(
+        } else if constexpr (wide_orig) {
+            decode_orig_kernel<T, OP><<<grid, OrigOut<T>::THREADS, 0, j.stream>>>(
                 src, out, base, j.base_stride, j.n_blocks, j.width);
         } else if constexpr (ENCODE) {
             encode_kernel<T, OP, ORDER><<<grid, kThreads, 0, j.stream>>>(

@@ -1,14 +1,16 @@
 """Two builds of csrc/codecs.cu, side by side on one card: all eleven kernels.
 
     python -m fastlanes_tpu_torch.kernels.ab_codecs BASELINE.cu [--bound-ms 0.1]
+        [--dtypes u64] [--widths 35,51] [--kernels unpack_orig,undelta_pack_orig]
 
 BASELINE.cu is another revision of csrc/codecs.cu with the same C interface
 (`fl_decode`, `fl_encode`). Both files are built with the same nvcc flags;
 what ptxas reports for every kernel instantiation of each is printed. Then
 for every dtype, at a size whose bytes bound is at least `--bound-ms` and
-W = T/4 + 2 (per-block base and reference), each of the seven decode kernels
-and the four encode kernels (`delta_pack_orig` plain and zigzag) runs
-through both libraries on the same inputs: the two outputs (the packed words
+W = T/4 + 2 or each of `--widths` up to T (per-block base and reference),
+each of the seven decode kernels and the four encode kernels
+(`delta_pack_orig` plain and zigzag; `--kernels` for a cut) runs through
+both libraries on the same inputs: the two outputs (the packed words
 and, for `delta_pack_orig`, the base it writes) must be equal byte for
 byte, and each is timed with CUDA events (10 launches back to back, median
 of 10) in turns baseline, checkout, checkout, baseline. Prints one JSON
@@ -98,7 +100,15 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("baseline", help="another revision of csrc/codecs.cu")
     parser.add_argument("--bound-ms", type=float, default=0.1)
+    parser.add_argument("--dtypes", default=",".join(layout.DTYPES))
+    parser.add_argument("--widths", default=None,
+                        help="comma-separated widths (default: T/4 + 2 of each dtype)")
+    parser.add_argument("--kernels", default=",".join(DECODE + ENCODE))
     args = parser.parse_args(argv)
+    kernels = args.kernels.split(",")
+    unknown = [k for k in kernels if k not in DECODE + ENCODE]
+    if unknown:
+        parser.error(f"unknown kernel {unknown[0]!r}; have {DECODE + ENCODE}")
     if not torch.cuda.is_available():
         print("ab_codecs needs a CUDA device", file=sys.stderr)
         return 1
@@ -110,9 +120,14 @@ def main(argv=None) -> int:
         libs[label], ptxas[label] = build.bind(path), build.ptxas_usage(log)
     rng = np.random.default_rng(20240607)
     rows, same = [], True
-    for dtype in layout.DTYPES:
+    cases = []
+    for dtype in args.dtypes.split(","):
+        t = layout.bit_width(dtype)
+        widths = [t // 4 + 2] if args.widths is None else \
+            [w for w in map(int, args.widths.split(",")) if w <= t]
+        cases += [(dtype, w) for w in widths]
+    for dtype, width in cases:
         t, nl, np_dt = layout.bit_width(dtype), layout.lanes(dtype), layout.np_dtype(dtype)
-        width = t // 4 + 2
         plen = layout.packed_len(dtype, width)
         block_bytes = (layout.BLOCK + plen + nl) * t // 8
         blocks = -(-int(args.bound_ms * 1e-3 * HBM_BYTES_PER_S / block_bytes) // 1024) * 1024
@@ -124,7 +139,9 @@ def main(argv=None) -> int:
         inputs = {"packed": draw(1024, plen).repeat(reps, 1),
                   "values": draw(1024, layout.BLOCK).repeat(reps, 1),
                   "base": draw(1024, nl).repeat(reps, 1), "refs": draw(1024).repeat(reps)}
-        for name in DECODE + ENCODE:
+        for name in kernels:
+            if width == 0 and name in ("pack", "delta_pack", "for_pack"):
+                continue  # W = 0 has no packed words to write
             runs, moved = {}, 0
             for label, lib in libs.items():
                 runs[label], moved = launcher(lib, name, dtype, inputs, width)

@@ -123,8 +123,9 @@ _MANGLED_DTYPE = {"h": "u8", "t": "u16", "j": "u32", "m": "u64", "y": "u64"}
 
 def ptxas_usage(log: str) -> dict:
     """What `-Xptxas -v` reports per kernel instantiation, from a build log:
-    {"decode_kernel<u8,0,1>": {"registers": n, "spill_store_bytes": n,
-    "spill_load_bytes": n}}, the template's integer arguments in order."""
+    {"decode_kernel<u8,0,1>": {"registers": n, "smem_bytes": n,
+    "spill_store_bytes": n, "spill_load_bytes": n}}, the template's integer
+    arguments in order."""
     usage, name = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '([^']+)'", line)
@@ -144,4 +145,7 @@ def ptxas_usage(log: str) -> dict:
         regs = re.search(r"Used (\d+) registers", line)
         if regs:
             usage[name]["registers"] = int(regs.group(1))
+        smem = re.search(r"(\d+) bytes smem", line)
+        if smem:
+            usage[name]["smem_bytes"] = int(smem.group(1))
     return usage

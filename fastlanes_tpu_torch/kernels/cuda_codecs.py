@@ -36,10 +36,13 @@ transposed row, so the thread loads and stores 32-bit words and a warp moves
 word (SWAR). In original order a u8/u16 thread turns its row words into
 words of consecutive values of one lane with a byte transpose in registers
 and stores them straight out (decode), or loads its lanes' consecutive
-values and turns them back into row words (encode); u32/u64, whose lane
-segments are 128/512 bytes, stage the block in shared memory and move it
-with consecutive threads on consecutive words. Every source and base goes
-to the kernels 16-byte aligned (`_aligned`).
+values and turns them back into row words (encode). u32/u64 lane segments
+are 128/512 bytes: their decode copies the packed words into shared memory
+lane-major and gives each thread 4 rows of one lane to compute and store as
+16-byte runs (a running sum is a scan over a lane's threads); their encode
+stages the values in shared memory and moves them in with consecutive
+threads on consecutive words. Every source and base goes to the kernels
+16-byte aligned (`_aligned`).
 
 Beside each kernel stands its plain PyTorch version (`*_plain`, built from
 ops/). A wrapper takes the plain version only for a tensor that lies on the
@@ -80,6 +83,10 @@ _KERNELS = {
     "for_pack": ("fl_encode", 2, 0), "delta_pack_orig": ("fl_encode", 1, 1),
 }
 _ZIGZAG_ENCODE_OP = 3  # delta_pack_orig(zigzag=True)
+#: FastLanes blocks one CUDA block of the u32/u64 original-order decode takes
+#: (OrigOut<T>::NB of csrc/codecs.cu): the edges of its grid, which the card
+#: tests and chip_smoke.py probe
+ORIG_DECODE_BLOCKS_PER_CTA = {"u32": 4, "u64": 2}
 
 #: kernel launches per wrapper (plain integers; reset by assigning 0)
 LAUNCHES = {name: 0 for name in _KERNELS}

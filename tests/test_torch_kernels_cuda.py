@@ -151,6 +151,32 @@ def test_orig_kernels_match_plain_and_oracle(card, dt, w):
                                                      "unzdelta_pack", "pack", "delta_pack"))
 
 
+ORIG_EDGES = [(dt, w, n) for dt, nb in ck.ORIG_DECODE_BLOCKS_PER_CTA.items()
+              for w in (0, 1, layout.bit_width(dt) - 1, layout.bit_width(dt))
+              for n in sorted({1, nb - 1, nb + 1, 2 * nb + 1})]
+
+
+@pytest.mark.parametrize("dt,w,n_blocks", ORIG_EDGES)
+def test_orig_decode_edges_on_the_card(card, dt, w, n_blocks):
+    """The u32/u64 original-order decode at the edges of its grid: one
+    block, a ragged group of NB - 1 or NB + 1 blocks, 2 * NB + 1; words and
+    bases over all T bits; a per-block and a shared base."""
+    rng = np.random.default_rng(5000 * layout.bit_width(dt) + 100 * w + n_blocks)
+    t, nl, np_dt = layout.bit_width(dt), layout.lanes(dt), layout.np_dtype(dt)
+    words = rng.integers(0, 1 << t, size=(n_blocks, layout.packed_len(dt, w)),
+                         dtype=np.uint64).astype(np_dt)
+    bases = rng.integers(0, 1 << t, size=(n_blocks, nl), dtype=np.uint64).astype(np_dt)
+    packed, base = torch.from_numpy(words).to(card), torch.from_numpy(bases).to(card)
+    for name, args in (("unpack_orig", (packed,)), ("undelta_pack_orig", (packed, base)),
+                       ("undelta_pack_orig", (packed, base[-1].clone())),
+                       ("unzdelta_pack_orig", (packed, base)),
+                       ("unzdelta_pack_orig", (packed, base[-1].clone()))):
+        got = getattr(ck, name)(*args, w, dt)
+        want = getattr(ck, name + "_plain")(*(a.cpu() for a in args), w, dt)
+        torch.cuda.synchronize()
+        assert torch.equal(signed(got.cpu()), signed(want)), (name, dt, w, n_blocks)
+
+
 @pytest.mark.parametrize("zigzag", [False, True], ids=["plain", "zigzag"])
 @pytest.mark.parametrize("dt,w", CONFIGS)
 def test_delta_pack_orig_on_the_card(card, dt, w, zigzag):
