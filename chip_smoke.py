@@ -56,7 +56,15 @@ that pass the headline column at 131 072 + 5 blocks (unequal shards) and
 gather a payload whose sha256 must be the single-process `pack`'s; the path
 must launch `pack`, `unpack`, `unpack_orig`, `undelta_pack`,
 `undelta_pack_orig`, `unzdelta_pack`, `unzdelta_pack_orig`, `for_pack` and
-`unfor_pack` (SHARD_KERNELS). Then the command line (`cli.main` in this
+`unfor_pack` (SHARD_KERNELS). Just before it, `mesh=` on the five reads and
+ten aggregations (`mesh` path): at one rank over NCCL in this process and at
+two ranks over gloo on the one card (two child processes, one spawn), on the
+headline file, three other read files, the table and the group table; every
+rank reads and decodes only its chunks, each local read equals the host
+reader's rows of those chunks, every aggregation answer equals the NumPy
+oracle and the call without a mesh, and the two ranks agree; the path must
+launch `unpack`, `unfor_pack`, `undelta_pack`, `undelta_pack_orig` and
+`unzdelta_pack_orig` (MESH_KERNELS). Then the command line (`cli.main` in this
 process, on the card): decompress --device, scan --where and --group-by, a
 select with ORDER BY ... LIMIT and a join, each answer equal to the library
 call's; the path must launch `unpack`, `unfor_pack` and `undelta_pack_orig`
@@ -2208,6 +2216,397 @@ def phase_shard(columns: dict, dev: dict, encoded: dict, tmp: str, device=None,
     return {"launches": launches, "by_dtype": by_dtype}
 
 
+# -- mesh=: the reads and the aggregations split over the ranks of a mesh ---
+
+#: the mesh path must launch: the headline (unpack), the ffor file and the
+#: table's qty (unfor_pack), the sorted table key in natural order under
+#: scan_table and in original order under a lockstep window (undelta_pack,
+#: undelta_pack_orig), the zdelta file (unzdelta_pack_orig)
+MESH_KERNELS = ("unpack", "unfor_pack", "undelta_pack", "undelta_pack_orig",
+                "unzdelta_pack_orig")
+MESH_READS = ("read_blocks_device", "read_file_device", "read_files_device",
+              "iter_files_device", "read_column_device")
+
+
+def mesh_files(read_paths: dict, table: dict, groups: dict) -> dict:
+    return {"headline": read_paths["headline_u32_w3"], "table": table["path"],
+            "groups": groups["path"], "few": [read_paths[n] for n in
+                                              ("ffor_u32", "delta_u32", "zdelta_u32")]}
+
+
+def mesh_calls(files: dict) -> dict:
+    """label -> call(device, mesh): every entry that takes `mesh=`, on the read
+    phase's headline file (and three other read files), the table phase's
+    table and the aggregate phase's group table."""
+    h, t, g, few = files["headline"], files["table"], files["groups"], files["few"]
+    hb = fio.read_header(h)["n_blocks"]
+    names = list(fio_table.read_table_header(t)["columns"])
+    preds = [("cur", "eq", "EUR"), ("qty", "ge", 1_000_000_500),
+             ("day", "ge", np.datetime64("2020-01-01"))]
+    return {
+        "read_blocks_device[headline 5:-3]": lambda d, m: fio_device.read_blocks_device(
+            h, 5, hb - 3, device=d, mesh=m),
+        "read_file_device[headline]": lambda d, m: fio_device.read_file_device(
+            h, device=d, mesh=m),
+        "read_files_device[ffor, delta, zdelta]": lambda d, m: fio_device.read_files_device(
+            few, device=d, mesh=m),
+        "iter_files_device[ffor, delta, zdelta]": lambda d, m: list(
+            fio_device.iter_files_device(few, device=d, mesh=m)),
+        "read_column_device[table, every column]": lambda d, m: {
+            n: fio_device.read_column_device(t, n, device=d, mesh=m) for n in names},
+        "scan_column[headline]": lambda d, m: analytics.scan_column(h, device=d, mesh=m),
+        "scan_table[table]": lambda d, m: analytics.scan_table(t, device=d, mesh=m),
+        "count_where[headline ge 4]": lambda d, m: analytics.count_where(
+            h, "ge", 4, device=d, mesh=m),
+        "count_where[cur eq JPY]": lambda d, m: analytics.count_where(
+            t, "eq", "JPY", column="cur", device=d, mesh=m),
+        "scan_where[key where qty ge]": lambda d, m: analytics.scan_where(
+            t, "ge", 1_000_000_900, column="key", where="qty", device=d, mesh=m),
+        "scan_where_multi[3 preds]": lambda d, m: analytics.scan_where_multi(
+            t, preds, column="price", device=d, mesh=m),
+        "group_stats[store->price]": lambda d, m: analytics.group_stats(
+            g, "store", "price", device=d, mesh=m),
+        "group_stats[sku->amount]": lambda d, m: analytics.group_stats(
+            g, "sku", "amount", device=d, mesh=m),
+        "group_stats[cur->price]": lambda d, m: analytics.group_stats(
+            t, "cur", "price", device=d, mesh=m),
+        "value_counts[cur]": lambda d, m: analytics.value_counts(t, "cur", device=d, mesh=m),
+        "value_counts[units]": lambda d, m: analytics.value_counts(g, "units", device=d, mesh=m),
+        "top_k[price]": lambda d, m: analytics.top_k(t, "price", k=100, device=d, mesh=m),
+        "quantile[qty]": lambda d, m: analytics.quantile(
+            t, "qty", [0.01, 0.5, 0.99], device=d, mesh=m),
+        "median[change]": lambda d, m: analytics.median(t, "change", device=d, mesh=m),
+    }
+
+
+def mesh_oracles(read_columns: dict, tcols: dict, gcols: dict) -> dict:
+    """label -> the NumPy oracle of each aggregation of `mesh_calls`."""
+    head = read_columns["headline_u32_w3"][0]
+    qty_hit = oracle_mask(tcols["qty"], "ge", 1_000_000_900)
+    preds = [("cur", "eq", "EUR"), ("qty", "ge", 1_000_000_500),
+             ("day", "ge", np.datetime64("2020-01-01"))]
+    ok = np.logical_and.reduce([oracle_mask(tcols[c], op, v) for c, op, v in preds])
+    # the currencies by code (sorted words: code order is word order), which
+    # numpy counts and orders far faster than 2^24 strings
+    codes = np.searchsorted(TABLE_WORDS, tcols["cur"])
+    by_cur = GroupOracle(codes, labels=TABLE_WORDS)
+    top = np.sort(tcols["price"])[::-1][:100]
+    table_stats = {name: oracle_stats(v) for name, v in tcols.items() if name != "cur"}
+    table_stats["cur"] = {"sum": None, "min": str(TABLE_WORDS[codes.min()]),
+                          "max": str(TABLE_WORDS[codes.max()]), "count": int(codes.size),
+                          "n_dict": int(TABLE_WORDS.size)}
+    counts = np.bincount(codes, minlength=TABLE_WORDS.size)
+    out = {
+        "scan_column[headline]": oracle_stats(head),
+        "scan_table[table]": {name: table_stats[name] for name in tcols},
+        "value_counts[cur]": {str(w): int(c) for w, c in zip(TABLE_WORDS, counts) if c},
+        "count_where[headline ge 4]": int((head >= 4).sum()),
+        "count_where[cur eq JPY]": int(oracle_mask(tcols["cur"], "eq", "JPY").sum()),
+        "scan_where[key where qty ge]": oracle_stats(tcols["key"][qty_hit]),
+        "scan_where_multi[3 preds]": oracle_stats(tcols["price"][ok]),
+        "group_stats[store->price]": GroupOracle(gcols["store"]).stats(gcols["price"]),
+        "group_stats[sku->amount]": GroupOracle(gcols["sku"]).stats(gcols["amount"]),
+        "group_stats[cur->price]": by_cur.stats(tcols["price"]),
+        "top_k[price]": [float(v) for v in top],
+        "quantile[qty]": [lower_quantile(tcols["qty"], q) for q in (0.01, 0.5, 0.99)],
+        "median[change]": lower_quantile(tcols["change"], 0.5),
+    }
+    u, c = np.unique(gcols["units"], return_counts=True)
+    out["value_counts[units]"] = dict(zip(u.tolist(), c.tolist()))
+    return out
+
+
+def _host_part(path: str, column, start: int, stop, part, flat: bool):
+    """The host reader's rows of the chunks a rank of `part` reads for blocks
+    [start, stop) of a file or a table column; `flat`: a whole read, flat
+    and cut at the column's length."""
+    from fastlanes_tpu_torch.parallel import shard  # noqa: F401  (the rank's share)
+
+    if column is None:
+        meta = fio.read_header(path)
+    else:
+        meta = fio_table._col_meta(fio_table.read_table_header(path), column)
+    stop = meta["n_blocks"] if stop is None else stop
+    _idxs, first, end = fio_device._covering(meta["chunks"], meta["chunk_blocks"], start,
+                                             stop, part)
+    host = (fio.read_blocks(path, first, end) if column is None
+            else fio_table.read_column(path, column, first, end))
+    if flat and meta.get("n_values") is not None:
+        host = host.reshape(-1)[:max(0, meta["n_values"] - first * layout.BLOCK)]
+    return host
+
+
+def mesh_read_want(label: str, files: dict, part):
+    """The host reader's answer to the read `label` of `mesh_calls` for the
+    rank of `part` (None: the whole read): its rows of its chunks."""
+    h, t, few = files["headline"], files["table"], files["few"]
+    if label.startswith("read_blocks_device"):
+        return _host_part(h, None, 5, fio.read_header(h)["n_blocks"] - 3, part, False)
+    if label.startswith("read_file_device"):
+        return _host_part(h, None, 0, None, part, True)
+    if label.startswith(("read_files_device", "iter_files_device")):
+        parts = [(p, _host_part(p, None, 0, None, part, True)) for p in few]
+        return dict(parts) if label.startswith("read_files") else parts
+    return {n: _host_part(t, n, 0, None, part, True)
+            for n in fio_table.read_table_header(t)["columns"]}
+
+
+def same_read(got, want) -> bool:
+    """A read's answer against the host reader's (dicts and (path, value)
+    lists through, same_host at the leaves)."""
+    if isinstance(want, dict):
+        return isinstance(got, dict) and list(got) == list(want) and all(
+            same_read(got[k], want[k]) for k in want)
+    if isinstance(want, list):
+        return isinstance(got, list) and len(got) == len(want) and all(
+            g[0] == w[0] and same_read(g[1], w[1]) for g, w in zip(got, want))
+    if want.size == 0:  # a rank without chunks (the host reader types an empty range its own way)
+        while not isinstance(got, torch.Tensor):
+            got = got.values if isinstance(got, fio_device.NullableColumn) else got.codes
+        return got.numel() == 0
+    return same_host(got, want)
+
+
+def same_device(a, b) -> bool:
+    """Two reads on the device, bit for bit, through their wrappers."""
+    if isinstance(b, dict):
+        return isinstance(a, dict) and list(a) == list(b) and all(
+            same_device(a[k], b[k]) for k in b)
+    if isinstance(b, list):
+        return isinstance(a, list) and len(a) == len(b) and all(
+            x[0] == y[0] and same_device(x[1], y[1]) for x, y in zip(a, b))
+    if isinstance(b, fio_device.NullableColumn):
+        return isinstance(a, fio_device.NullableColumn) and same(a.valid, b.valid) \
+            and same_device(a.values, b.values)
+    if isinstance(b, fio_table.StringColumn):
+        return isinstance(a, fio_table.StringColumn) and same(a.codes, b.codes) \
+            and np.array_equal(a.dictionary, b.dictionary)
+    return same(a, b)
+
+
+@contextlib.contextmanager
+def mesh_meter():
+    """While active, counts the chunks decoded on the device and their
+    payload bytes (every decode goes through fio_device's
+    `_decode_chunk_device` or `_decode_run_batched`) and the collectives
+    (`torch.distributed.all_gather_object`, the combine of parallel/shard.py)."""
+    import torch.distributed as dist
+
+    counts = {"chunks": 0, "bytes": 0, "collectives": 0}
+    real_chunk, real_run = fio_device._decode_chunk_device, fio_device._decode_run_batched
+    real_gather = dist.all_gather_object
+
+    def chunk(meta, raw, *args, **kwargs):
+        counts["chunks"] += 1
+        counts["bytes"] += len(raw)
+        return real_chunk(meta, raw, *args, **kwargs)
+
+    def run(sig, members, *args, **kwargs):
+        counts["chunks"] += len(members)
+        counts["bytes"] += sum(len(raw) for _, raw in members)
+        return real_run(sig, members, *args, **kwargs)
+
+    def gather(*args, **kwargs):
+        counts["collectives"] += 1
+        return real_gather(*args, **kwargs)
+
+    fio_device._decode_chunk_device, fio_device._decode_run_batched = chunk, run
+    dist.all_gather_object = gather
+    try:
+        yield counts
+    finally:
+        fio_device._decode_chunk_device, fio_device._decode_run_batched = real_chunk, real_run
+        dist.all_gather_object = real_gather
+
+
+def metered_call(call, mesh, device) -> tuple:
+    """(answer, {chunks, bytes, collectives, launches by kernel[dtype]}) of
+    one call on `mesh`, synchronised."""
+    before = dict(ck.LAUNCHES_BY_DTYPE)
+    with mesh_meter() as counts:
+        got = call(None, mesh)
+        sync_if_cuda(device)
+    counts["launches"] = {f"{k}[{d}]": n - before.get((k, d), 0)
+                          for (k, d), n in sorted(ck.LAUNCHES_BY_DTYPE.items())
+                          if n != before.get((k, d), 0)}
+    return got, counts
+
+
+def walls_of_3(fn, device, barrier=None) -> float:
+    """Median wall ms of 3 calls, each synchronised (after a barrier of the
+    ranks where one is given)."""
+    samples = []
+    for _ in range(3):
+        if barrier is not None:
+            barrier()
+        sync_if_cuda(device)
+        t0 = time.perf_counter()
+        fn()
+        sync_if_cuda(device)
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(samples)
+
+
+MESH_CHILD = r"""
+import json, pickle, sys
+rank, store, root, device, files_path, out_path = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                                                   sys.argv[4], sys.argv[5], sys.argv[6])
+sys.path.insert(0, root)
+import torch.distributed as dist
+import chip_smoke as cs
+from fastlanes_tpu_torch import parallel
+from fastlanes_tpu_torch.parallel import shard
+
+dist.init_process_group("gloo", init_method="file://" + store, rank=rank, world_size=2)
+mesh = parallel.make_mesh(device=device)
+dev = cs.eng.resolve_device(device)
+with open(files_path) as f:
+    files = cs.json.load(f)
+part = shard._Part(None, 2, rank)
+cs.ck.reset_launches()
+report, answers = {}, {}
+for label, call in cs.mesh_calls(files).items():
+    dist.barrier()
+    got, counts = cs.metered_call(call, mesh, dev)
+    if label.startswith(cs.MESH_READS):  # this rank's rows, checked here
+        counts["equal_to_the_host_reader"] = cs.same_read(got, cs.mesh_read_want(label, files,
+                                                                                 part))
+    else:
+        answers[label] = got
+    del got
+    report[label] = counts
+for label, call in cs.mesh_calls(files).items():
+    report[label]["ms"] = cs.walls_of_3(lambda: call(None, mesh), dev, dist.barrier)
+with open(out_path, "wb") as f:
+    pickle.dump(answers, f)
+print(json.dumps({"rank": rank, "backend": dist.get_backend(), "device": str(dev),
+                  "calls": report}), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def two_rank_mesh_run(files: dict, tmp: str, device) -> tuple:
+    """Every call of `mesh_calls` in two child processes on the one card, over
+    gloo: -> (each rank's JSON line, each rank's aggregation answers). A
+    child that fails, prints no line or runs past its time fails the smoke."""
+    import pickle
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    files_path = os.path.join(tmp, "mesh_files.json")
+    with open(files_path, "w") as f:
+        json.dump(files, f)
+    store = os.path.join(tmp, "mesh.store")
+    child_device = "cuda:0" if device.type == "cuda" else "cpu"
+    outs = [os.path.join(tmp, f"mesh_rank{rank}.pkl") for rank in range(2)]
+    procs = [subprocess.Popen([sys.executable, "-c", MESH_CHILD, str(rank), store, root,
+                               child_device, files_path, outs[rank]], cwd=root,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for rank in range(2)]
+    try:
+        got = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    lines, answers = [], []
+    for rank, (p, (out, err)) in enumerate(zip(procs, got)):
+        found = [line for line in out.splitlines() if line.startswith("{")]
+        if p.returncode != 0 or len(found) != 1:
+            raise AssertionError(f"mesh child {rank} failed (rc {p.returncode}):\n"
+                                 f"{out[-2000:]}\n{err[-4000:]}")
+        lines.append(json.loads(found[0]))
+        with open(outs[rank], "rb") as f:
+            answers.append(pickle.load(f))
+    return lines, answers
+
+
+def phase_mesh(read_paths: dict, read_columns: dict, table: dict, groups: dict, tmp: str,
+               device=None, card: str = "cpu") -> dict:
+    """`mesh=` on the five reads and ten aggregations. One rank in this
+    process (NCCL on the card): every answer equal to the host reader (a
+    read) or the NumPy oracle (an aggregation) and to the call without a
+    mesh, with its wall beside the unsharded wall. Then two ranks over gloo
+    on the one card in two child processes: each checks its local reads
+    against the host reader's rows of its chunks; here each rank's
+    aggregation answers are held to the oracles and to each other."""
+    from fastlanes_tpu_torch import parallel
+    import torch.distributed as dist
+
+    device = eng.resolve_device(device)
+    t0 = time.perf_counter()
+    files = mesh_files(read_paths, table, groups)
+    calls = mesh_calls(files)
+    oracles = mesh_oracles(read_columns, table["columns"], groups["columns"])
+    oracle_seconds = time.perf_counter() - t0
+    if dist.is_initialized():
+        raise AssertionError("a process group is already initialized")
+    mesh = parallel.make_mesh(device=device)
+    backend = dist.get_backend()
+
+    def check(label, got, rank):
+        want = oracles[label]
+        if not same_stats(got, want) or (isinstance(want, dict) and list(got) != list(want)):
+            raise AssertionError(f"mesh {label} at {rank}: {got!r} differs from the "
+                                 f"oracle {want!r}"[:2000])
+
+    ck.reset_launches()
+    report, answers = {}, {}
+    for label, call in calls.items():
+        got, report[label] = metered_call(call, mesh, device)
+        if label.startswith(MESH_READS):
+            if not same_read(got, mesh_read_want(label, files, None)):
+                raise AssertionError(f"mesh {label} at one rank differs from the host reader")
+        else:
+            check(label, got, "one rank")
+            answers[label] = got
+        del got
+    launches, by_dtype = launch_counts()
+    for label, call in calls.items():  # the calls without a mesh, the same answers
+        plain = call(device, None)
+        if label.startswith(MESH_READS):
+            if not same_device(call(None, mesh), plain):
+                raise AssertionError(f"mesh {label} at one rank differs from the call "
+                                     "without a mesh")
+        elif not (same_stats(plain, answers[label]) and
+                  (not isinstance(plain, dict) or list(plain) == list(answers[label]))):
+            raise AssertionError(f"mesh {label}: {answers[label]!r} differs from the call "
+                                 f"without a mesh {plain!r}"[:2000])
+        del plain
+        report[label]["ms"] = walls_of_3(lambda: call(None, mesh), device)
+        report[label]["unsharded_ms"] = walls_of_3(lambda: call(device, None), device)
+    dist.destroy_process_group()
+    del mesh
+    world_1_seconds = time.perf_counter() - t0 - oracle_seconds
+
+    t1 = time.perf_counter()
+    lines, rank_answers = two_rank_mesh_run(files, tmp, device)
+    for line, got in zip(lines, rank_answers):
+        bad = [label for label, c in line["calls"].items()
+               if c.get("equal_to_the_host_reader") is False]
+        if bad:
+            raise AssertionError(f"mesh rank {line['rank']}: local reads differ from the "
+                                 f"host reader's rows of its chunks: {bad}")
+        for label, answer in got.items():
+            check(label, answer, f"rank {line['rank']} of 2")
+        if device.type == "cuda" and not any(c["launches"] for c in line["calls"].values()):
+            raise AssertionError(f"mesh rank {line['rank']} launched no kernel")
+    if not all(same_stats(rank_answers[0][k], rank_answers[1][k]) for k in rank_answers[0]):
+        raise AssertionError("the two ranks' aggregation answers differ")
+    emit({"phase": "mesh", "tolerance": 0, "card": card, "device": str(device),
+          "split": "rank r of n takes the chunks [r*s, min((r+1)*s, C)), s = ceil(C / n), "
+                   "of the C chunks a call covers in each file",
+          "oracle": "reads: the host reader's rows of the rank's chunks; aggregations: "
+                    "numpy in this script, and the call without a mesh",
+          "oracle_seconds": oracle_seconds,
+          "world_1": {"backend": backend, "seconds": world_1_seconds, "calls": report},
+          "world_2": {"backend": lines[0]["backend"], "device": lines[0]["device"],
+                      "seconds": time.perf_counter() - t1,
+                      "ranks": [line["calls"] for line in lines]},
+          "launches": launches})
+    return {"launches": launches, "by_dtype": by_dtype}
+
+
 def same_rows_npz(path: str, rows: dict) -> bool:
     """The .npz a CLI select / join wrote == the library's rows (masked
     columns as X + X__valid, floats bit for bit)."""
@@ -3114,6 +3513,8 @@ def main() -> int:
                        ("unpack", "unfor_pack", "undelta_pack", "undelta_pack_orig"))
         queries = drive("query", lambda: phase_query(table, groups, tmp),
                         ("unpack", "unfor_pack", "undelta_pack_orig"))
+        drive("mesh", lambda: phase_mesh(read_state["paths"], columns, table, groups, tmp,
+                                         card=info["nvidia_smi"]), MESH_KERNELS)
         drive("shard", lambda: phase_shard(columns, encode_state["device_columns"],
                                            shard_encoded, tmp, card=info["nvidia_smi"]),
               SHARD_KERNELS)

@@ -76,6 +76,7 @@ import torch
 from . import fio, fio_device, zonemaps
 from .core import layout
 from .ops import _engine as eng
+from .parallel import shard
 
 _ORDER_OPS = ("lt", "le", "gt", "ge", "eq", "ne")
 #: membership predicates take a LIST of probe values (the semi-join /
@@ -148,7 +149,8 @@ def _merge_str_stats(subs) -> dict:
 
 
 def _decoded_chunks(path: str, column: Optional[str], device,
-                    window: Optional[int] = None, keep=None, natural=False):
+                    window: Optional[int] = None, keep=None, natural=False,
+                    part=None):
     """Yield (decoded device blocks, dtype, vtype, valid, vmask) already
     transform-applied: real values in the column's logical domain. `valid`
     counts the leading values of the part that belong to the column (the
@@ -174,9 +176,15 @@ def _decoded_chunks(path: str, column: Optional[str], device,
     relayout does. Values are a per-block permutation of the original
     order, so it is applied per run only when nothing positional rides
     along: no validity bitmap and no padded tail block in the run (the
-    `valid` prefix and `vmask` are positional)."""
+    `valid` prefix and `vmask` are positional).
+
+    `part` (a mesh rank's place, parallel.shard._Part) walks only this
+    rank's chunks (shard._chunk_span): they alone are read from disk and
+    decoded, windows start at the range's first chunk, and `valid`, the
+    validity mask and `keep` keep their file-wide positions."""
     chunks, cdtype, transform, vtype, n_values, base_off, nulls_meta = \
         _column_layout(path, column)
+    lo, hi = shard._chunk_span(part, len(chunks))
     starts = [0]
     for m in chunks:
         starts.append(starts[-1] + m["n_blocks"])
@@ -218,7 +226,7 @@ def _decoded_chunks(path: str, column: Optional[str], device,
 
         if window is None:
             runs = []  # maximal contiguous runs of kept chunk indices
-            for i in range(len(chunks)):
+            for i in range(lo, hi):
                 if keep is not None and not keep[i]:
                     continue
                 if runs and runs[-1][-1] == i - 1:
@@ -239,8 +247,8 @@ def _decoded_chunks(path: str, column: Optional[str], device,
                         natural=_run_natural(sub))
                     yield from emit(parts, starts[sub[0]])
         else:
-            for i in range(0, len(chunks), window):
-                idxs = range(i, min(i + window, len(chunks)))
+            for i in range(lo, hi, window):
+                idxs = range(i, min(i + window, hi))
                 if keep is not None:
                     # trim the skippable prefix/suffix of the window (the
                     # interior decodes whole so the part stays one
@@ -757,6 +765,29 @@ class _StatAcc:
             self.kmx = kmx if self.kmx is None else max(self.kmx, kmx)
         self.count += n_ok
 
+    @classmethod
+    def merged(cls, accs) -> "_StatAcc":
+        """One accumulator holding what `accs` (the ranks' partial states,
+        in rank order) hold: every field is exact (Python ints, the float
+        numerator, counts, total-order keys), so the merge is the walk
+        without a mesh."""
+        out = cls()
+        for a in accs:
+            out.total += a.total
+            out.count += a.count
+            if a.mn is not None:
+                out.mn = _merge_extreme(out.mn, a.mn, min)
+                out.mx = _merge_extreme(out.mx, a.mx, max)
+            out.float_kind = a.float_kind or out.float_kind
+            out.float_num += a.float_num
+            out.n_nan += a.n_nan
+            out.n_pinf += a.n_pinf
+            out.n_ninf += a.n_ninf
+            if a.kmn is not None:
+                out.kmn = a.kmn if out.kmn is None else min(out.kmn, a.kmn)
+                out.kmx = a.kmx if out.kmx is None else max(out.kmx, a.kmx)
+        return out
+
     def result(self) -> dict:
         if self.float_kind is None:
             return {"sum": self.total, "min": self.mn, "max": self.mx,
@@ -781,119 +812,156 @@ class _StatAcc:
         return {"sum": total, "min": mn, "max": mx, "count": self.count}
 
 
-def scan_column(path, column: Optional[str] = None, device=None) -> dict:
+def _per_file(paths, column) -> bool:
+    """A dataset over a string column merges per file: each file owns its
+    dictionary, so code-domain accumulators cannot merge; strings can."""
+    return len(paths) > 1 and _str_dict_of(paths[0], column) is not None
+
+
+def _local_accs(paths, column, feed) -> list:
+    """`feed(acc, path)` for every path into one shared _StatAcc, or one per
+    file for a string dataset: this rank's partial states."""
+    accs = [_StatAcc() for _ in (paths if _per_file(paths, column) else paths[:1])]
+    for i, p in enumerate(paths):
+        feed(accs[min(i, len(accs) - 1)], p)
+    return accs
+
+
+def _combined_accs(part, paths, column, feed) -> list:
+    """_local_accs on every rank, combined over the mesh: the merged
+    accumulators."""
+    states = shard._combine(part, lambda: _local_accs(paths, column, feed))
+    return [_StatAcc.merged(col) for col in zip(*states)]
+
+
+def _acc_results(paths, column, accs, with_n_null: bool = False) -> dict:
+    """Merged accumulators -> the user's stats: a string column's codes map
+    to its labels (file by file for a string dataset, then merged);
+    `with_n_null` adds the headers' null count of a nullable column."""
+    subs = []
+    for p, acc in zip(paths, accs):  # one shared acc: the first file's labels
+        d = _str_dict_of(p, column)
+        subs.append(_map_str_result(acc.result(), d) if d is not None else acc.result())
+    out = _merge_str_stats(subs) if len(subs) > 1 else subs[0]
+    if with_n_null:
+        nulls = [_column_layout(p, column)[6] for p in paths]
+        if any(m is not None for m in nulls):
+            out["n_null"] = sum(int(m["n_null"]) for m in nulls if m is not None)
+    return out
+
+
+def _scan_column_feed(column, device, part):
+    """scan_column's feed: every run of this rank's chunks of `column`."""
+    def feed(acc, p):
+        for blocks, cdtype, vtype, valid, vmask in _decoded_chunks(
+                p, column, device, natural=True, part=part):
+            acc.feed(blocks, cdtype, vtype, valid, pred=vmask)
+    return feed
+
+
+def scan_column(path, column: Optional[str] = None, device=None,
+                mesh=None) -> dict:
     """Sum/min/max/count over a compressed column (one path or a list of
     paths), decoded and reduced on the device run by run. Returns python
-    scalars: {sum, min, max, count} (+ n_null for a nullable column)."""
-    device = eng.resolve_device(device)
+    scalars: {sum, min, max, count} (+ n_null for a nullable column).
+
+    With `mesh` (parallel.make_mesh), each rank reads and reduces only its
+    share of every file's chunks, and the exact partial states (Python-int
+    sums, the float superaccumulator, counts, total-order keys) meet in ONE
+    all_gather_object: every rank returns the answer without a mesh."""
+    device, part = shard._placement(device, mesh)
     paths = _paths(path)
-    if len(paths) > 1 and _str_dict_of(paths[0], column) is not None:
-        return _merge_str_stats([scan_column(p, column, device)
-                                 for p in paths])
-    acc = _StatAcc()
-    n_null = 0
-    any_null = False
-    for p in paths:
-        for blocks, cdtype, vtype, valid, vmask in _decoded_chunks(
-                p, column, device, natural=True):
-            acc.feed(blocks, cdtype, vtype, valid, pred=vmask)
-        nulls_meta = _column_layout(p, column)[6]
-        if nulls_meta is not None:
-            any_null = True
-            n_null += int(nulls_meta["n_null"])
-    d = _str_dict_of(paths[0], column)
-    r = _map_str_result(acc.result(), d) if d is not None else acc.result()
-    if any_null:
-        r["n_null"] = n_null
-    return r
+    accs = _combined_accs(part, paths, column, _scan_column_feed(column, device, part))
+    return _acc_results(paths, column, accs, with_n_null=True)
 
 
-def scan_table(path, columns=None, device=None) -> dict:
+def scan_table(path, columns=None, device=None, mesh=None) -> dict:
     """Single-pass stats over several (default: all) columns of an FLTTAB
     table file: the header parses once and every selected chunk is visited
     in payload-offset order, so the file is read sequentially exactly once
     no matter how many columns are scanned. Returns
-    {column_name: {sum, min, max, count}}."""
+    {column_name: {sum, min, max, count}}. With `mesh`, as scan_column:
+    every column's partial state meets in ONE all_gather_object."""
     from . import fio_table
 
-    device = eng.resolve_device(device)
+    device, part = shard._placement(device, mesh)
     paths = _paths(path)
-    if len(paths) > 1:  # sharded dataset: per-column dataset scans
-        header = fio_table.read_table_header(paths[0])
-        names = list(header["columns"]) if columns is None else list(columns)
-        return {name: scan_column(paths, name, device) for name in names}
-    path = paths[0]
-    header = fio_table.read_table_header(path)
+    header = fio_table.read_table_header(paths[0])
     names = list(header["columns"]) if columns is None else list(columns)
     cols = {name: fio_table._col_meta(header, name) for name in names}
+    if len(paths) == 1:
+        # Columns' payloads are laid out sequentially (write_table appends
+        # one column's chunks after another), so scanning columns in
+        # first-chunk offset order IS one sequential pass over the file;
+        # within a column the batched generator merges same-signature
+        # chunks into one launch.
+        names.sort(key=lambda n: cols[n]["chunks"][0]["offset"]
+                   if cols[n]["chunks"] else 0)
 
-    # Columns' payloads are laid out sequentially (write_table appends one
-    # column's chunks after another), so scanning columns in first-chunk
-    # offset order IS one sequential pass over the file; within a column
-    # the batched generator merges same-signature chunks into one launch.
-    names.sort(key=lambda n: cols[n]["chunks"][0]["offset"]
-               if cols[n]["chunks"] else 0)
+    def local():  # every column's accumulators over this rank's chunks
+        return {name: _local_accs(paths, name, _scan_column_feed(name, device, part))
+                for name in names}
+
+    states = shard._combine(part, local)
     out = {}
     for name in names:
-        acc = _StatAcc()
-        for blocks, cdtype, vtype, valid, vmask in _decoded_chunks(
-                path, name, device, natural=True):
-            acc.feed(blocks, cdtype, vtype, valid, pred=vmask)
-        d = _str_dict_of(path, name)
-        r = (_map_str_result(acc.result(), d) if d is not None
-             else acc.result())
-        nulls_meta = cols[name].get("nulls")
-        if nulls_meta is not None:
-            r["n_null"] = int(nulls_meta["n_null"])
-        out[name] = r
+        accs = [_StatAcc.merged(a) for a in zip(*(st[name] for st in states))]
+        out[name] = _acc_results(paths, name, accs, with_n_null=True)
     return out
 
 
 def count_where(path, op: str, value, column: Optional[str] = None,
-                device=None) -> int:
+                device=None, mesh=None) -> int:
     """Filtered count: the predicate is evaluated on the decoded values on
     the device, and only the running count leaves it. Chunks whose zone map
-    decides the predicate are never decoded."""
+    decides the predicate are never decoded. With `mesh`, each rank counts
+    its own chunks (a chunk the zone map resolves counts on the rank that
+    owns it) and the counts add in ONE all_gather_object."""
     if op not in _ALL_OPS:
         raise ValueError(f"unknown predicate {op!r}; have {sorted(_ALL_OPS)}")
-    device = eng.resolve_device(device)
-    total = 0
-    for p in _paths(path):
-        d = _str_dict_of(p, column)
-        # string column: the predicate pushes down on THIS file's codes
-        op_p, value_p = ((op, _probe_epoch(p, column, value)) if d is None
-                         else _str_pred_to_code(d, op, value))
-        # zone maps: 'none' chunks skip decode, 'all' chunks resolve from
-        # the header alone (chunk row count minus its nulls)
-        ds, chunks, n_values = _zone_decisions_col(p, column, op_p, value_p)
-        keep, start_v = [], 0
-        for meta, dec in zip(chunks, ds):
-            cap = meta["n_blocks"] * layout.BLOCK
-            n_chunk = cap if n_values is None else max(
-                0, min(cap, n_values - start_v))
-            start_v += cap
-            if dec == "all":
-                total += n_chunk - meta.get("stats", {}).get("nn", 0)
-            keep.append(dec == "maybe")
-        if not any(keep):
-            continue
-        if all(keep):
-            keep = None
-        for blocks, cdtype, vtype, valid, vmask in _decoded_chunks(
-                p, column, device, keep=keep, natural=True):
-            if valid == 0:
+    device, part = shard._placement(device, mesh)
+
+    def local():
+        total = 0
+        for p in _paths(path):
+            d = _str_dict_of(p, column)
+            # string column: the predicate pushes down on THIS file's codes
+            op_p, value_p = ((op, _probe_epoch(p, column, value)) if d is None
+                             else _str_pred_to_code(d, op, value))
+            # zone maps: 'none' chunks skip decode, 'all' chunks resolve from
+            # the header alone (chunk row count minus its nulls)
+            ds, chunks, n_values = _zone_decisions_col(p, column, op_p, value_p)
+            lo, hi = shard._chunk_span(part, len(chunks))
+            keep, start_v = [], 0
+            for i, (meta, dec) in enumerate(zip(chunks, ds)):
+                cap = meta["n_blocks"] * layout.BLOCK
+                n_chunk = cap if n_values is None else max(
+                    0, min(cap, n_values - start_v))
+                start_v += cap
+                if dec == "all" and lo <= i < hi:
+                    total += n_chunk - meta.get("stats", {}).get("nn", 0)
+                keep.append(dec == "maybe")
+            if not any(keep[lo:hi]):
                 continue
-            flat = _flatten_logical(blocks, cdtype, vtype)
-            mask = _pred_mask(flat, op_p, value_p)
-            if vmask is not None:  # nulls match no predicate (not even 'ne')
-                mask = mask & vmask
-            total += _count_masked(mask, valid)
-    return total
+            if all(keep):
+                keep = None
+            for blocks, cdtype, vtype, valid, vmask in _decoded_chunks(
+                    p, column, device, keep=keep, natural=True, part=part):
+                if valid == 0:
+                    continue
+                flat = _flatten_logical(blocks, cdtype, vtype)
+                mask = _pred_mask(flat, op_p, value_p)
+                if vmask is not None:  # nulls match no predicate (not even 'ne')
+                    mask = mask & vmask
+                total += _count_masked(mask, valid)
+        return total
+
+    return sum(shard._combine(part, local))
 
 
 def scan_where(path, op: str, value, column: Optional[str] = None,
                where: Optional[str] = None, device=None,
-               window: Optional[int] = None) -> dict:
+               window: Optional[int] = None, mesh=None) -> dict:
     """Filtered aggregation, selection and aggregation in one pass:
     sum/min/max/count over the rows matching `OP value`, decoded and
     reduced on the device per run (sums stay exact: the predicate just
@@ -902,27 +970,23 @@ def scan_where(path, op: str, value, column: Optional[str] = None,
     requires the two columns to share block layout (equal length and
     chunking, the writer's default for equal-length columns) and walks both
     in lockstep, `window` chunks per launch (default 8; the result does not
-    depend on it). Returns {sum, min, max, count} over matching rows."""
+    depend on it). Returns {sum, min, max, count} over matching rows. With
+    `mesh`, as scan_column: each rank walks its own chunks (in lockstep,
+    the same range of every column) and the partial states meet once."""
     if op not in _ALL_OPS:
         raise ValueError(f"unknown predicate {op!r}; have {sorted(_ALL_OPS)}")
-    device = eng.resolve_device(device)
+    device, part = shard._placement(device, mesh)
     paths = _paths(path)
-    vdict0 = _str_dict_of(paths[0], column)
-    if len(paths) > 1 and vdict0 is not None:
-        return _merge_str_stats([scan_where(p, op, value, column, where,
-                                            device, window) for p in paths])
-    acc = _StatAcc()
-    for p in paths:
-        _scan_where_into(acc, p, op, value, column, where, device,
-                         window or _LOCKSTEP_WINDOW)
-    return (_map_str_result(acc.result(), vdict0) if vdict0 is not None
-            else acc.result())
+    accs = _combined_accs(part, paths, column, lambda acc, p: _scan_where_into(
+        acc, p, op, value, column, where, device, window or _LOCKSTEP_WINDOW, part))
+    return _acc_results(paths, column, accs)
 
 
-def _scan_where_into(acc, path, op, value, column, where, device, window):
+def _scan_where_into(acc, path, op, value, column, where, device, window,
+                     part=None):
     """One file's worth of filtered aggregation fed into a shared
     accumulator (string predicates translate against THIS file's
-    dictionary)."""
+    dictionary); with a mesh `part`, this rank's chunks of it."""
     vdict = _str_dict_of(path, column)
     wdict = (vdict if where is None or where == column
              else _str_dict_of(path, where))
@@ -935,7 +999,7 @@ def _scan_where_into(acc, path, op, value, column, where, device, window):
     if where is None or where == column:
         keep = _zone_keep(path, [(column, op, value)])
         for blocks, cdtype, vtype, valid, vmask in _decoded_chunks(
-                path, column, device, keep=keep, natural=True):
+                path, column, device, keep=keep, natural=True, part=part):
             if valid == 0:
                 continue
             flat = _flatten_logical(blocks, cdtype, vtype)
@@ -948,7 +1012,7 @@ def _scan_where_into(acc, path, op, value, column, where, device, window):
     # sides share the zone-map keep so the walks stay aligned)
     keep = _zone_keep(path, [(where, op, value)], names=(column, where))
     for rows in _lockstep_chunks(path, (column, where), device, keep=keep,
-                                 window=window):
+                                 window=window, part=part):
         vb, vdt, vvt, v_valid, v_mask = rows[column]
         if v_valid == 0:
             continue
@@ -965,13 +1029,20 @@ def _scan_where_into(acc, path, op, value, column, where, device, window):
 
 
 def _lockstep_chunks(path: str, names, device, keep=None,
-                     window: int = _LOCKSTEP_WINDOW):
+                     window: int = _LOCKSTEP_WINDOW, part=None):
     """Walk several columns' chunk streams in lockstep, `window` chunks per
     part, so parts align row for row. Yields {name: (blocks, cdtype, vtype,
     valid, vmask)} per window; raises ValueError on mismatched layouts.
     `keep` (zone-map chunk flags) is shared: every column skips the same
-    windows, so alignment survives."""
-    iters = {n: _decoded_chunks(path, n, device, window=window, keep=keep)
+    windows, so alignment survives. With a mesh `part` every column takes
+    the same chunk range, so the layouts must agree chunk for chunk: that is
+    checked from the headers first, on every rank alike."""
+    if part is not None and len({_chunk_layout(path, n) for n in names}) > 1:
+        raise ValueError(
+            f"columns {sorted(names, key=str)} have mismatched chunk "
+            "layouts; lockstep scans need equal length and chunking")
+    iters = {n: _decoded_chunks(path, n, device, window=window, keep=keep,
+                                part=part)
              for n in names}
     while True:
         rows = {n: next(it, None) for n, it in iters.items()}
@@ -987,6 +1058,12 @@ def _lockstep_chunks(path: str, names, device, keep=None,
                 f"columns {sorted(names, key=str)} have mismatched chunk "
                 "layouts; lockstep scans need equal length and chunking")
         yield rows
+
+
+def _chunk_layout(path: str, column) -> tuple:
+    """(blocks of every chunk, n_values) of a column, from its header."""
+    chunks, _cd, _t, _vt, n_values = _column_layout(path, column)[:5]
+    return tuple(m["n_blocks"] for m in chunks), n_values
 
 
 def _normalize_preds(path: str, preds):
@@ -1021,22 +1098,19 @@ def _chunk_row_mask(rows, preds):
 
 
 def scan_where_multi(path, preds, column: Optional[str] = None,
-                     device=None) -> dict:
+                     device=None, mesh=None) -> dict:
     """Filtered aggregation with several ANDed predicates, the WHERE clause
     `p1 AND p2 AND ...` pushed down in one pass: each predicate is (column,
     op, value) (string probes compare as dictionary codes; null rows never
     match), and sum/min/max/count aggregate `column` over the surviving
     rows with the scans' exactness. Chunks a predicate's zone map rules out
-    are not decoded. One host fetch per lockstep window."""
-    device = eng.resolve_device(device)
+    are not decoded. One host fetch per lockstep window. With `mesh`, as
+    scan_where."""
+    device, part = shard._placement(device, mesh)
     paths = _paths(path)
-    vdict0 = _str_dict_of(paths[0], column)
-    if len(paths) > 1 and vdict0 is not None:
-        return _merge_str_stats([scan_where_multi(p, preds, column, device)
-                                 for p in paths])
     raw_preds = list(preds)
-    acc = _StatAcc()
-    for p in paths:
+
+    def feed(acc, p):
         preds_p = _normalize_preds(p, raw_preds)
         names = list(dict.fromkeys([q[0] for q in preds_p] + [column]))
         if None in names and len(names) > 1:
@@ -1044,7 +1118,7 @@ def scan_where_multi(path, preds, column: Optional[str] = None,
                              "predicates only; name table columns explicitly")
         keep = _zone_keep(p, preds_p, names=[n for n in names
                                              if n is not None])
-        for rows in _lockstep_chunks(p, names, device, keep=keep):
+        for rows in _lockstep_chunks(p, names, device, keep=keep, part=part):
             blocks, cdtype, vtype, valid, vmask = rows[column]
             if valid == 0:
                 continue
@@ -1052,8 +1126,8 @@ def scan_where_multi(path, preds, column: Optional[str] = None,
             if vmask is not None:  # null values don't aggregate
                 mask = vmask if mask is None else mask & vmask
             acc.feed_flat(_flatten_logical(blocks, cdtype, vtype), valid, mask)
-    r = acc.result()
-    return _map_str_result(r, vdict0) if vdict0 is not None else r
+
+    return _acc_results(paths, column, _combined_accs(part, paths, column, feed))
 
 
 # ---------------------------------------------------------------------------
@@ -1187,53 +1261,70 @@ class _GroupAcc:
         self.mx.fill_(_imin(torch.int64))
         self.rows = 0
 
+    def host_state(self) -> tuple:
+        """(kind, offset, fetched parts): this accumulator's exact state on
+        the host, after one flush. The parts of several accumulators of one
+        group count concatenate (`_group_result`)."""
+        self.flush()
+        return self.kind, self.offset, self.parts
+
     def result(self) -> dict:
         """{group: {sum, min, max, count}} for the non-empty groups, in
         ascending group number; Python ints and floats."""
-        self.flush()
-        if not self.parts:
-            return {}
-        n_count = 4 if self.kind in ("f32", "f64") else 1
-        counts = sum(p[0][:, :n_count].sum(1) for p in self.parts)
-        mins = np.minimum.reduce([p[1] for p in self.parts])
-        maxs = np.maximum.reduce([p[2] for p in self.parts])
-        groups = np.flatnonzero(counts)
-        if self.kind in ("int", "i64"):
-            # exact Python ints (object arrays), added over the fetches
-            sums = sum(p[0][groups, 1:].astype(object) for p in self.parts)
-            if self.kind == "int":
-                total = sums[:, 0] + counts[groups].astype(object) * self.offset
-            else:
-                total = (sums[:, 1] << 32) + sums[:, 0]
-            off = self.offset
-            return {g: {"sum": s, "min": mn + off, "max": mx + off, "count": c}
-                    for g, s, mn, mx, c in zip(
-                        groups.tolist(), total.tolist(), mins[groups].tolist(),
-                        maxs[groups].tolist(), counts[groups].tolist())}
-        kind = self.kind
-        denom_bits = _FLOAT_SPEC[kind][5]
-        out = {}
-        for g in groups.tolist():
-            n_nan, n_pinf, n_ninf = (sum(int(p[0][g, j]) for p in self.parts)
-                                     for j in (1, 2, 3))
-            if n_nan or (n_pinf and n_ninf):
-                total = float("nan")
-            elif n_pinf:
-                total = float("inf")
-            elif n_ninf:
-                total = float("-inf")
-            else:
-                num = sum(_float_bins_to_int(p[0][g, 4:], kind)
-                          for p in self.parts)
-                total = float(Fraction(num, 1 << denom_bits)) if num else 0.0
-            if n_nan:
-                mn = mx = float("nan")
-            else:
-                mn = _float_of_key(int(mins[g]), kind)
-                mx = _float_of_key(int(maxs[g]), kind)
-            out[g] = {"sum": total, "min": mn, "max": mx,
-                      "count": int(counts[g])}
-        return out
+        return _group_result(*self.host_state())
+
+
+def _group_result(kind, offset, parts) -> dict:
+    """The groups of fetched accumulator `parts` (see _GroupAcc.flush):
+    counts, sums and float bins add, extremes take their min / max."""
+    if not parts:
+        return {}
+    n_count = 4 if kind in ("f32", "f64") else 1
+    counts = sum(p[0][:, :n_count].sum(1) for p in parts)
+    mins = np.minimum.reduce([p[1] for p in parts])
+    maxs = np.maximum.reduce([p[2] for p in parts])
+    groups = np.flatnonzero(counts)
+    if kind in ("int", "i64"):
+        # exact Python ints (object arrays), added over the fetches
+        sums = sum(p[0][groups, 1:].astype(object) for p in parts)
+        if kind == "int":
+            total = sums[:, 0] + counts[groups].astype(object) * offset
+        else:
+            total = (sums[:, 1] << 32) + sums[:, 0]
+        return {g: {"sum": s, "min": mn + offset, "max": mx + offset, "count": c}
+                for g, s, mn, mx, c in zip(
+                    groups.tolist(), total.tolist(), mins[groups].tolist(),
+                    maxs[groups].tolist(), counts[groups].tolist())}
+    denom_bits = _FLOAT_SPEC[kind][5]
+    out = {}
+    for g in groups.tolist():
+        n_nan, n_pinf, n_ninf = (sum(int(p[0][g, j]) for p in parts)
+                                 for j in (1, 2, 3))
+        if n_nan or (n_pinf and n_ninf):
+            total = float("nan")
+        elif n_pinf:
+            total = float("inf")
+        elif n_ninf:
+            total = float("-inf")
+        else:
+            num = sum(_float_bins_to_int(p[0][g, 4:], kind) for p in parts)
+            total = float(Fraction(num, 1 << denom_bits)) if num else 0.0
+        if n_nan:
+            mn = mx = float("nan")
+        else:
+            mn = _float_of_key(int(mins[g]), kind)
+            mx = _float_of_key(int(maxs[g]), kind)
+        out[g] = {"sum": total, "min": mn, "max": mx, "count": int(counts[g])}
+    return out
+
+
+def _merged_group_result(states) -> dict:
+    """The ranks' host states of one group count (None: a rank that fed
+    nothing) -> the groups, as one accumulator fed every rank's rows."""
+    fed = [st for st in states if st is not None]
+    if not fed:
+        return {}
+    return _group_result(fed[0][0], fed[0][1], [p for st in fed for p in st[2]])
 
 
 def _merge_group_results(subs, str_value: bool) -> dict:
@@ -1286,57 +1377,36 @@ def _stats_summary(paths, column):
     return {"count": total, "min": lo, "max": hi, "nan": nan}
 
 
-def group_stats(path, key: str, value: str, max_groups: Optional[int] = None,
-                device=None, preds=()) -> dict:
-    """GROUP BY pushdown over a compressed table file: per-group
-    sum/min/max/count of the `value` column grouped by the integer `key`
-    column, decoded and reduced on the device with the scans' exactness
-    (integer sums exact, float sums exactly rounded). Keys must be
-    non-negative integers of up to 32 bits; the group count comes from the
-    key's zone maps (or a key scan) unless `max_groups` is given (caps:
-    65536 for integer values, 1024 for float values, the reference's). The
-    columns must share block layout (equal length and chunking). Returns
-    {group: {sum, min, max, count}} for the non-empty groups, in ascending
-    group number. A STRING `key` groups by its dictionary codes and labels
-    the result with the strings; a string `value` aggregates lexicographic
-    min/max/count (sum is None). A LIST of paths: integer-keyed numeric
-    groups share one exact accumulator; string-keyed or string-valued
-    groups merge per-file results. `preds` ANDs (column, op, value) WHERE
-    predicates before grouping, with zone-map chunk pruning."""
-    device = eng.resolve_device(device)
-    paths = _paths(path)
-    kdict = _str_dict_of(paths[0], key)
-    vdict = _str_dict_of(paths[0], value)
-    raw_preds = list(preds)
-    if len(paths) > 1 and (kdict is not None or vdict is not None):
-        subs = [group_stats(p, key, value, max_groups, device, raw_preds)
-                for p in paths]
-        return _merge_group_results(subs, vdict is not None)
-    if max_groups is None:
-        if kdict is not None:
-            if kdict.size == 0:
-                return {}
-            max_groups = int(kdict.size)
-        else:
-            # the group count needs the key range only: header-only when
-            # zone maps cover the column, one key scan otherwise
-            ks = _stats_summary(paths, key)
-            if ks is None:
-                ks = scan_column(path, column=key, device=device)
-            if ks["count"] == 0:
-                return {}
-            if ks["min"] < 0:
-                raise ValueError(f"group keys must be >= 0; {key!r} has "
-                                 f"min {ks['min']}")
-            max_groups = int(ks["max"]) + 1
-    k = int(max_groups)
+def _group_count(paths, key, kdict, max_groups, device, mesh) -> Optional[int]:
+    """The group count k of a group_stats call over `paths` (None: the
+    answer is empty): `max_groups`, the key's dictionary size, or the key
+    range from the zone maps or one key scan."""
+    if max_groups is not None:
+        return int(max_groups)
+    if kdict is not None:
+        return int(kdict.size) or None
+    # the group count needs the key range only: header-only when zone maps
+    # cover the column, one key scan otherwise
+    ks = _stats_summary(paths, key)
+    if ks is None:
+        ks = scan_column(paths, column=key, device=device, mesh=mesh)
+    if ks["count"] == 0:
+        return None
+    if ks["min"] < 0:
+        raise ValueError(f"group keys must be >= 0; {key!r} has "
+                         f"min {ks['min']}")
+    return int(ks["max"]) + 1
 
+
+def _group_walk(paths, key, value, k, raw_preds, device, part):
+    """This rank's chunks of `paths` grouped into one _GroupAcc: its host
+    state, or None when no window was walked."""
     acc = None
     for p in paths:
         preds_p = _normalize_preds(p, raw_preds)
         names = list(dict.fromkeys([key, value] + [q[0] for q in preds_p]))
         keep = _zone_keep(p, preds_p, names=names)
-        for rows in _lockstep_chunks(p, names, device, keep=keep):
+        for rows in _lockstep_chunks(p, names, device, keep=keep, part=part):
             kb, kdt, kvt, _k_valid, k_mask = rows[key]
             vb, vdt, vvt, v_valid, v_mask = rows[value]
             flat_v = _flatten_logical(vb, vdt, vvt)
@@ -1364,12 +1434,59 @@ def group_stats(path, key: str, value: str, max_groups: Optional[int] = None,
             if acc is None:
                 acc = _GroupAcc(k, flat_v, flat_v.key.device)
             acc.feed(flat_k, flat_v, v_valid, mask)
-    out = acc.result() if acc is not None else {}
-    if vdict is not None:  # string value column: codes -> labels
-        out = {g: _map_str_result(s, vdict) for g, s in out.items()}
-    if kdict is not None:  # string key column: label groups
-        out = {str(kdict[g]): s for g, s in out.items()}
-    return out
+    return None if acc is None else acc.host_state()
+
+
+def group_stats(path, key: str, value: str, max_groups: Optional[int] = None,
+                device=None, preds=(), mesh=None) -> dict:
+    """GROUP BY pushdown over a compressed table file: per-group
+    sum/min/max/count of the `value` column grouped by the integer `key`
+    column, decoded and reduced on the device with the scans' exactness
+    (integer sums exact, float sums exactly rounded). Keys must be
+    non-negative integers of up to 32 bits; the group count comes from the
+    key's zone maps (or a key scan) unless `max_groups` is given (caps:
+    65536 for integer values, 1024 for float values, the reference's). The
+    columns must share block layout (equal length and chunking). Returns
+    {group: {sum, min, max, count}} for the non-empty groups, in ascending
+    group number. A STRING `key` groups by its dictionary codes and labels
+    the result with the strings; a string `value` aggregates lexicographic
+    min/max/count (sum is None). A LIST of paths: integer-keyed numeric
+    groups share one exact accumulator; string-keyed or string-valued
+    groups merge per-file results. `preds` ANDs (column, op, value) WHERE
+    predicates before grouping, with zone-map chunk pruning.
+
+    With `mesh`, each rank groups its own chunks (the same range of every
+    column) and the accumulators, their spread copies folded, meet in ONE
+    all_gather_object of their fetched counts, sums, float bins and
+    extremes; every rank returns the answer without a mesh. (Without zone
+    maps on the key, the key scan that sizes the groups is a combine of its
+    own.)"""
+    device, part = shard._placement(device, mesh)
+    paths = _paths(path)
+    kdict = _str_dict_of(paths[0], key)
+    vdict = _str_dict_of(paths[0], value)
+    raw_preds = list(preds)
+    # string-keyed or string-valued datasets group file by file
+    per_file = len(paths) > 1 and (kdict is not None or vdict is not None)
+    sets = [[p] for p in paths] if per_file else [paths]
+    ks = [_group_count(ps, key, _str_dict_of(ps[0], key), max_groups, device, mesh)
+          for ps in sets]
+
+    def local():
+        return [None if k is None else _group_walk(ps, key, value, k, raw_preds, device, part)
+                for ps, k in zip(sets, ks)]
+
+    states = shard._combine(part, local)
+    subs = []
+    for i, ps in enumerate(sets):
+        out = _merged_group_result([st[i] for st in states])
+        vd, kd = _str_dict_of(ps[0], value), _str_dict_of(ps[0], key)
+        if vd is not None:  # string value column: codes -> labels
+            out = {g: _map_str_result(s, vd) for g, s in out.items()}
+        if kd is not None:  # string key column: label groups
+            out = {str(kd[g]): s for g, s in out.items()}
+        subs.append(out)
+    return _merge_group_results(subs, vdict is not None) if per_file else subs[0]
 
 
 # ---------------------------------------------------------------------------
@@ -1393,7 +1510,12 @@ def distinct(path, column: Optional[str] = None) -> np.ndarray:
         if not parts:
             return distinct(paths[0], column)
         return np.unique(np.concatenate(parts))
-    path = paths[0]
+    return _distinct_of(paths[0], column)
+
+
+def _distinct_of(path, column, part=None) -> np.ndarray:
+    """distinct of one file; with a mesh `part`, of this rank's chunks only
+    (the ranks' sets unite to the file's)."""
     (chunks, cdtype, transform, vtype, n_values, base_off,
      nulls_meta) = _column_layout(path, column)
     d = _str_dict_of(path, column)
@@ -1404,8 +1526,9 @@ def distinct(path, column: Optional[str] = None) -> np.ndarray:
     if d is not None:
         return d.copy()  # built from the data: every entry occurs
     parts = []
+    lo, hi = shard._chunk_span(part, len(chunks))
     with open(path, "rb") as f:
-        for meta in chunks:
+        for meta in chunks[lo:hi]:
             f.seek(base_off + meta["offset"])
             raw = f.read(meta["nbytes"])
             if meta["codec"] == "dict":
@@ -1446,7 +1569,8 @@ def _holds_a_value(chunks, n_values, nulls_meta) -> bool:
 
 
 def value_counts(path, column: Optional[str] = None,
-                 max_values: int = _VALUE_COUNTS_CAP, device=None) -> dict:
+                 max_values: int = _VALUE_COUNTS_CAP, device=None,
+                 mesh=None) -> dict:
     """{value: count} over a compressed column, exact. The distinct set
     (see `distinct`) becomes a sorted device dictionary in the column's key
     domain; each decoded run counts its searchsorted codes with index_add_
@@ -1454,19 +1578,31 @@ def value_counts(path, column: Optional[str] = None,
     count their dictionary codes directly. Capped at `max_values` distinct
     values; float columns raise, and so do 64-bit columns: the reference
     refuses them (its device has no 64-bit integers), and the port keeps
-    the refusal for parity."""
-    device = eng.resolve_device(device)
+    the refusal for parity.
+
+    With `mesh`, each rank takes the distinct set of its own chunks and
+    counts them against it; the (values, counts) of every rank meet in ONE
+    all_gather_object, and the cap is checked on their union, the file's
+    distinct set."""
+    device, part = shard._placement(device, mesh)
     paths = _paths(path)
-    if len(paths) > 1:  # sharded dataset: exact count merge
-        merged = {}
-        for p in paths:
-            for val, cnt in value_counts(p, column, max_values, device).items():
-                merged[val] = merged.get(val, 0) + cnt
-        if len(merged) > max_values:
-            raise ValueError(f"{len(merged)} distinct values exceed "
-                             f"max_values={max_values}")
-        return merged
-    path = paths[0]
+    states = shard._combine(part, lambda: [
+        _value_counts_local(p, column, max_values, device, part) for p in paths])
+    merged = {}
+    for i, p in enumerate(paths):
+        for val, cnt in _value_counts_merge(
+                p, column, max_values, [st[i] for st in states]).items():
+            merged[val] = merged.get(val, 0) + cnt
+    if len(paths) > 1 and len(merged) > max_values:  # sharded dataset
+        raise ValueError(f"{len(merged)} distinct values exceed "
+                         f"max_values={max_values}")
+    return merged
+
+
+def _value_counts_local(path, column, max_values, device, part):
+    """One file's counts on this rank: (its values, their counts), the
+    counts None where the values alone pass the cap (the union is then
+    over it too)."""
     d = _str_dict_of(path, column)
     if d is None:
         chunks, cdtype, _t, vtype, n_values, _b, nulls_meta = _column_layout(
@@ -1481,24 +1617,21 @@ def value_counts(path, column: Optional[str] = None,
             if layout.bit_width(cdtype) == 64:
                 raise ValueError("value_counts over 64-bit columns is not "
                                  "supported without x64; use group_stats")
-        vals = distinct(path, column)
+        vals = _distinct_of(path, column, part)
         if vals.dtype.itemsize * 8 == 64:
             raise ValueError("value_counts over 64-bit columns is not "
                              "supported without x64; use group_stats")
     else:
         vals = d
-    if vals.size > max_values:
-        raise ValueError(f"{vals.size} distinct values exceed "
-                         f"max_values={max_values}")
     kcap = int(vals.size)
-    if kcap == 0:
-        return {}
+    if kcap > max_values:
+        return vals, None
     # one slot per value and a trash slot, spread as the group accumulator is
     spread = _spread_of(kcap + 1, 1)
     counts = torch.zeros(spread * (kcap + 1), dtype=torch.int64, device=device)
     sset = None
-    for blocks, cdtype, vtype, valid, vmask in _decoded_chunks(
-            path, column, device, natural=True):
+    for blocks, cdtype, vtype, valid, vmask in (() if kcap == 0 else _decoded_chunks(
+            path, column, device, natural=True, part=part)):
         if valid == 0:
             continue
         flat = _flatten_logical(blocks, cdtype, vtype).head(valid)
@@ -1515,8 +1648,27 @@ def value_counts(path, column: Optional[str] = None,
         if spread > 1:
             codes = codes + (torch.arange(valid, device=codes.device) % spread) * (kcap + 1)
         counts.index_add_(0, codes, torch.ones_like(codes))
-    got = _fetch(counts.view(spread, kcap + 1).sum(0)[:kcap])
-    if d is not None:
+    if kcap == 0:
+        return vals, np.zeros(0, np.int64)
+    return vals, _fetch_np(counts.view(spread, kcap + 1).sum(0)[:kcap])
+
+
+def _value_counts_merge(path, column, max_values, states) -> dict:
+    """The ranks' (values, counts) of one file -> {value: count}."""
+    vals = states[0][0]
+    held = [v for v, _ in states if v.size]  # a rank without chunks: the carrier's dtype
+    if len(held) > 1:  # the ranks' sets unite to the file's
+        vals = np.unique(np.concatenate(held))
+    elif held:
+        vals = held[0]
+    if vals.size > max_values:
+        raise ValueError(f"{vals.size} distinct values exceed "
+                         f"max_values={max_values}")
+    got = np.zeros(vals.size, np.int64)
+    for v, c in states:
+        np.add.at(got, np.searchsorted(vals, v), c)
+    got = got.tolist()
+    if _str_dict_of(path, column) is not None:
         return {str(vals[i]): c for i, c in enumerate(got) if c}
     if vals.dtype == bool:
         return {bool(vals[i]): c for i, c in enumerate(got) if c}
@@ -1551,7 +1703,7 @@ def _bound_int(key_tuple) -> int:
 
 
 def top_k(path, column: Optional[str] = None, k: int = 10,
-          largest: bool = True, device=None) -> list:
+          largest: bool = True, device=None, mesh=None) -> list:
     """The k largest (or smallest) values of a compressed column,
     duplicates included, best first. Each decoded run reduces to k
     candidates on the device (torch.topk on one signed int64 key: ints by
@@ -1559,31 +1711,40 @@ def top_k(path, column: Optional[str] = None, k: int = 10,
     NaN above +inf and -NaN below -inf; strings by dictionary code); only
     those reach the host merge. Null rows never rank. Runs are visited
     best-zone-map-bound first in growing batches, and the walk stops once
-    the k-th candidate beats every remaining chunk's bound."""
+    the k-th candidate beats every remaining chunk's bound. With `mesh`,
+    each rank takes the k best of its own chunks, and the candidates meet
+    in ONE all_gather_object and merge as the runs' candidates do."""
     if k <= 0:
         return []
-    device = eng.resolve_device(device)
+    device, part = shard._placement(device, mesh)
     paths = _paths(path)
-    if len(paths) > 1:  # sharded dataset: exact k-candidate value merge
-        vals = []
-        for p in paths:
-            vals += top_k(p, column, k, largest, device)
+    states = shard._combine(part, lambda: [
+        _top_k_local(p, column, k, largest, device, part) for p in paths])
+    per_file = [_top_k_values(p, column, k, largest, [st[i] for st in states])
+                for i, p in enumerate(paths)]
+    if len(paths) == 1:
+        return per_file[0]
+    # sharded dataset: exact k-candidate value merge
 
-        def keyf(v):  # IEEE total order: +NaN above +inf, -NaN below -inf
-            if isinstance(v, float) and math.isnan(v):
-                return (-1 if math.copysign(1.0, v) < 0 else 1, 0.0)
-            return (0, v)
+    def keyf(v):  # IEEE total order: +NaN above +inf, -NaN below -inf
+        if isinstance(v, float) and math.isnan(v):
+            return (-1 if math.copysign(1.0, v) < 0 else 1, 0.0)
+        return (0, v)
 
-        return sorted(vals, key=keyf, reverse=largest)[:k]
-    path = paths[0]
-    d = _str_dict_of(path, column)
+    return sorted([v for vals in per_file for v in vals], key=keyf, reverse=largest)[:k]
+
+
+def _top_k_local(path, column, k, largest, device, part):
+    """One file's best k keys on this rank (its chunks only): (domain,
+    candidates), domain = (kind, bits, offset) of the keys once a row
+    ranked, else None."""
     cands = []  # signed keys (see _chunk_top)
-    domain = None  # (kind, bits, offset) of the keys, once a row ranked
+    domain = None
 
     def visit(keep):
         nonlocal domain
         for blocks, cdtype, vtype, valid, vmask in _decoded_chunks(
-                path, column, device, keep=keep, natural=True):
+                path, column, device, keep=keep, natural=True, part=part):
             if valid == 0:
                 continue
             flat = _flatten_logical(blocks, cdtype, vtype).head(valid)
@@ -1597,12 +1758,12 @@ def top_k(path, column: Optional[str] = None, k: int = 10,
     chunks, cdtype_l, transform_l, vtype_l, _nv, _bo, _nm = _column_layout(
         path, column)
     zkind, zbits = zonemaps.topk_kind(cdtype_l, vtype_l, transform_l)
-    bounds = {i: zonemaps.topk_bound(meta, zkind, zbits, largest)
-              for i, meta in enumerate(chunks)}
+    lo, hi = shard._chunk_span(part, len(chunks))
+    bounds = {i: zonemaps.topk_bound(chunks[i], zkind, zbits, largest)
+              for i in range(lo, hi)}
     order = [i for i, b in bounds.items() if b is not None]
     order.sort(key=lambda i: bounds[i], reverse=largest)
-    if len(order) == len(chunks) and all(
-            "stats" not in chunks[i] for i in order):
+    if len(order) == hi - lo and all("stats" not in chunks[i] for i in order):
         visit(None)  # no zone maps anywhere: one grouped pass
     else:
         pos, batch = 0, 1
@@ -1622,24 +1783,32 @@ def top_k(path, column: Optional[str] = None, k: int = 10,
             for i in take:
                 kl[i] = True
             visit(kl)
-    if domain is None:
+    return domain, sorted(cands, reverse=largest)[:k]
+
+
+def _top_k_values(path, column, k, largest, states) -> list:
+    """The ranks' (domain, candidates) of one file -> its k best values."""
+    domains = [dom for dom, _ in states if dom is not None]
+    if not domains:
         return []
-    kind, _bits, offset = domain
-    best = sorted(cands, reverse=largest)[:k]
+    kind, _bits, offset = domains[0]
+    best = sorted([c for _, cands in states for c in cands], reverse=largest)[:k]
+    d = _str_dict_of(path, column)
     if d is not None:
         return [str(d[c + offset]) for c in best]
     if kind != "int":
         return [_float_of_key(c, kind) for c in best]
     out = [c + offset for c in best]
-    if vtype_l == "bool":
+    vtype = _column_layout(path, column)[3]
+    if vtype == "bool":
         return [bool(v) for v in out]
-    if vtype_l is not None and vtype_l.startswith(("datetime64", "timedelta64")):
-        dt = np.dtype(vtype_l)
+    if vtype is not None and vtype.startswith(("datetime64", "timedelta64")):
+        dt = np.dtype(vtype)
         return [np.int64(v).view(dt) for v in out]
     return out
 
 
-def quantile(path, column: Optional[str] = None, q=0.5, device=None):
+def quantile(path, column: Optional[str] = None, q=0.5, device=None, mesh=None):
     """EXACT quantile of a compressed column (lower interpolation: the value
     at zero-based rank floor(q*(n-1)) of the sorted non-null values, numpy's
     method='lower'). Accepts a scalar q or a list.
@@ -1648,8 +1817,11 @@ def quantile(path, column: Optional[str] = None, q=0.5, device=None):
     q. Otherwise a binary search in the column's own key space runs
     count_where('le', mid) per step (~32 counts for 32-bit ints, ~64 for
     64-bit ints and f64), each exact. Columns holding NaN return NaN (numpy
-    semantics); an empty or all-null column returns None."""
-    device = eng.resolve_device(device)
+    semantics); an empty or all-null column returns None. With `mesh`, every
+    count it takes (scan_column without zone maps, value_counts, each
+    count_where step) is sharded and combined once, so every rank walks the
+    same search and returns the same answer."""
+    device = shard._placement(device, mesh)[0]
     qs = np.atleast_1d(np.asarray(q, np.float64))
     if ((qs < 0) | (qs > 1)).any():
         raise ValueError("quantiles must be in [0, 1]")
@@ -1661,7 +1833,7 @@ def quantile(path, column: Optional[str] = None, q=0.5, device=None):
     if s is not None and s["nan"]:
         s = {"count": s["count"], "min": float("nan"), "max": float("nan")}
     if s is None:
-        s = scan_column(path, column=column, device=device)
+        s = scan_column(path, column=column, device=device, mesh=mesh)
     n = s["count"]
     scalar = np.isscalar(q) or np.asarray(q).ndim == 0
     if n == 0:
@@ -1671,7 +1843,7 @@ def quantile(path, column: Optional[str] = None, q=0.5, device=None):
     ranks = [int(np.floor(qq * (n - 1))) for qq in qs]
 
     try:  # one counting pass over the distinct set
-        vc = value_counts(path, column=column, device=device)
+        vc = value_counts(path, column=column, device=device, mesh=mesh)
     except ValueError:
         vc = None
     if vc is not None:
@@ -1710,7 +1882,7 @@ def quantile(path, column: Optional[str] = None, q=0.5, device=None):
             if is_float and not (s["min"] <= probe <= s["max"]):
                 probe = min(max(probe, s["min"]), s["max"])
             if count_where(path, "le", probe, column=column,
-                           device=device) >= r + 1:
+                           device=device, mesh=mesh) >= r + 1:
                 hi = mid
             else:
                 lo = mid + 1
@@ -1718,9 +1890,9 @@ def quantile(path, column: Optional[str] = None, q=0.5, device=None):
     return out[0] if scalar else out
 
 
-def median(path, column: Optional[str] = None, device=None):
+def median(path, column: Optional[str] = None, device=None, mesh=None):
     """Exact median (see quantile)."""
-    return quantile(path, column=column, q=0.5, device=device)
+    return quantile(path, column=column, q=0.5, device=device, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

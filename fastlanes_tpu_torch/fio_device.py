@@ -35,6 +35,7 @@ from .core import layout
 from .kernels import cuda_codecs as ck
 from .ops import _engine as eng
 from .ops import ffor as ops_ffor
+from .parallel import shard
 
 
 class NullableColumn:
@@ -337,28 +338,39 @@ def _concat_parts(parts, dtype, device, vtype=None):
                         dtype)
 
 
-def _read_chunks_device(f, chunks, base_off: int, chunk_blocks: int,
-                        start: int, stop: int, dtype: str, device, vtype=None):
-    """Device twin of fio.read_chunk_range: only covering chunks decode, and
-    consecutive same-(codec, width) chunks decode in ONE batched launch
-    (_decode_chunks_grouped)."""
-    covering = []
-    first_start = None
-    for ci, meta in enumerate(chunks):
-        c_start = ci * chunk_blocks
-        c_stop = c_start + meta["n_blocks"]
-        if c_stop <= start or c_start >= stop:
-            continue
-        if first_start is None:
-            first_start = c_start
-        f.seek(base_off + meta["offset"])
-        covering.append((meta, f.read(meta["nbytes"])))
-    if not covering:
+def _covering(chunks, chunk_blocks: int, start: int, stop: int, part=None):
+    """The chunks that cover blocks [start, stop): (their indices, the first
+    block and the end block of what they give inside the range). With a
+    mesh `part`, this rank's share of them: a contiguous run of the
+    covering chunks (parallel.shard._chunk_span); a rank with none gives
+    the empty range at `stop`."""
+    idxs = [ci for ci, meta in enumerate(chunks)
+            if ci * chunk_blocks < stop and ci * chunk_blocks + meta["n_blocks"] > start]
+    lo, hi = shard._chunk_span(part, len(idxs))
+    idxs = idxs[lo:hi]
+    if not idxs:
+        return idxs, stop, stop
+    last = idxs[-1]
+    return (idxs, max(start, idxs[0] * chunk_blocks),
+            min(stop, last * chunk_blocks + chunks[last]["n_blocks"]))
+
+
+def _read_chunks_device(f, chunks, base_off: int, chunk_blocks: int, idxs,
+                        first: int, end: int, dtype: str, device, vtype=None):
+    """Device twin of fio.read_chunk_range: reads and decodes only the chunks
+    `idxs` (see `_covering`), consecutive same-(codec, width) chunks in ONE
+    batched launch (_decode_chunks_grouped), and trims to blocks
+    [first, end)."""
+    if not idxs:
         return _concat_parts([], dtype, device, vtype)
+    covering = []
+    for ci in idxs:
+        f.seek(base_off + chunks[ci]["offset"])
+        covering.append((chunks[ci], f.read(chunks[ci]["nbytes"])))
     parts = _decode_chunks_grouped(covering, dtype, device)
     blocks = _concat_parts(parts, dtype, device, vtype)
-    # trim to the requested block range
-    return blocks[start - first_start:stop - first_start]
+    at = idxs[0] * chunk_blocks
+    return blocks[first - at:end - at]
 
 
 def _apply_transform_device(blocks, transform, dtype: str):
@@ -371,10 +383,17 @@ def _apply_transform_device(blocks, transform, dtype: str):
     raise ValueError(f"unknown transform {transform!r}")
 
 
-def _trim_flat(blocks, n_values):
+def _trim_flat(blocks, n_values, first: int = 0):
+    """Blocks from block `first` on, flat and cut at the column's
+    `n_values` (unchanged when it has none)."""
     if n_values is None:
         return blocks
-    return blocks.reshape(-1)[:n_values]
+    return blocks.reshape(-1)[:_values_from(n_values, first)]
+
+
+def _values_from(n_values, first: int):
+    """The values of a flat column from block `first` on (None: no cut)."""
+    return None if n_values is None else max(0, n_values - first * layout.BLOCK)
 
 
 def _wrap_column_nulls(result, path, base_off, nulls_meta, start, stop,
@@ -387,59 +406,75 @@ def _wrap_column_nulls(result, path, base_off, nulls_meta, start, stop,
     return NullableColumn(result, _to_device(valid, device))
 
 
-def read_blocks_device(path: str, start: int = 0, stop: Optional[int] = None,
-                       device=None):
-    """Decode blocks [start, stop) of an FLT file on the accelerator.
-
-    Returns a tensor of shape (stop-start, 1024) on `device` (None = the
-    GPU; raises without one), or a NullableColumn for a nullable column."""
-    device = eng.resolve_device(device)
+def _read_blocks(path: str, start: int, stop: Optional[int], device, part):
+    """read_blocks_device's work: (this rank's blocks, or the whole range
+    without a part; the first block of them, for the flat trim)."""
     header = fio.read_header(path)
     dtype = header["dtype"]
     n = header["n_blocks"]
     stop = n if stop is None else min(stop, n)
     if not 0 <= start <= stop:
         raise IndexError(f"bad block range [{start}, {stop})")
+    base_off = fio._payload_base(path)
+    idxs, first, end = _covering(header["chunks"], header["chunk_blocks"], start, stop,
+                                 part)
     with open(path, "rb") as f:
-        blocks = _read_chunks_device(f, header["chunks"], fio._payload_base(path),
-                                     header["chunk_blocks"], start, stop, dtype,
-                                     device, header.get("vtype"))
+        blocks = _read_chunks_device(f, header["chunks"], base_off, header["chunk_blocks"],
+                                     idxs, first, end, dtype, device, header.get("vtype"))
     out = _apply_transform_device(blocks, header.get("transform"), dtype)
     if "nulls" in header and stop > start:
-        return _wrap_column_nulls(out, path, fio._payload_base(path),
-                                  header["nulls"], start, stop, None, device)
-    return out
+        out = _wrap_column_nulls(out, path, base_off, header["nulls"], first, end, None,
+                                 device)
+    return out, first
 
 
-def read_file_device(path: str, device=None):
+def read_blocks_device(path: str, start: int = 0, stop: Optional[int] = None,
+                       device=None, mesh=None):
+    """Decode blocks [start, stop) of an FLT file on the accelerator.
+
+    Returns a tensor of shape (stop-start, 1024) on `device` (None = the
+    GPU; raises without one), or a NullableColumn for a nullable column.
+    With `mesh` (parallel.make_mesh), the chunks that cover the range split
+    over its ranks (parallel/shard.py): each rank reads and decodes only its
+    own and returns its LOCAL part, on the mesh's device; the parts in rank
+    order, concatenated along the first axis, are the read without a mesh.
+    No collective."""
+    device, part = shard._placement(device, mesh)
+    return _read_blocks(path, start, stop, device, part)[0]
+
+
+def read_file_device(path: str, device=None, mesh=None):
     """Whole-file device decode; flat-written columns come back flat and
-    trimmed to their exact original length (see fio.write_file)."""
+    trimmed to their exact original length (see fio.write_file). With
+    `mesh`, this rank's local part (see read_blocks_device): its chunks'
+    values, the last part cut at the column's length."""
+    device, part = shard._placement(device, mesh)
     header = fio.read_header(path)
-    blocks = read_blocks_device(path, device=device)
+    blocks, first = _read_blocks(path, 0, None, device, part)
     nv = header.get("n_values")
     if isinstance(blocks, NullableColumn):
-        valid = blocks.valid
-        if nv is not None:
-            valid = valid.reshape(-1)[:nv]
-        return NullableColumn(_trim_flat(blocks.values, nv), valid)
-    return _trim_flat(blocks, nv)
+        return NullableColumn(_trim_flat(blocks.values, nv, first),
+                              _trim_flat(blocks.valid, nv, first))
+    return _trim_flat(blocks, nv, first)
 
 
-def _file_result(path, header, parts, device):
-    """Decoded chunk parts of one whole file -> what read_file_device
-    returns for it: transform applied, flat columns trimmed, nulls wrapped."""
+def _file_result(path, header, parts, device, first: int = 0, end=None):
+    """Decoded chunk parts of one file, blocks [first, end) (the whole file
+    by default) -> what read_file_device returns for it: transform applied,
+    flat columns trimmed, nulls wrapped."""
     dtype = header["dtype"]
+    end = header["n_blocks"] if end is None else end
     blocks = _concat_parts(parts, dtype, device, header.get("vtype"))
     blocks = _apply_transform_device(blocks, header.get("transform"), dtype)
-    result = _trim_flat(blocks, header.get("n_values"))
+    result = _trim_flat(blocks, header.get("n_values"), first)
     if "nulls" in header:
         result = _wrap_column_nulls(
             result, path, fio._payload_base(path), header["nulls"],
-            0, header["n_blocks"], header.get("n_values"), device)
+            first, end, _values_from(header.get("n_values"), first), device)
     return result
 
 
-def read_files_device(paths, device=None) -> dict:
+def read_files_device(paths, device=None, mesh=None) -> dict:
     """Whole-file device decode of MANY FLT files with CROSS-FILE batched
     launches: every chunk sharing a (dtype, codec, width[, alp recipe])
     signature, whichever file it came from, decodes in ONE kernel launch,
@@ -449,21 +484,23 @@ def read_files_device(paths, device=None) -> dict:
     beside the payload (kernels.cuda_codecs.unfor_pack), where the JAX
     package keeps ffor chunk by chunk. Returns {path: decoded} with the
     per-file semantics of read_file_device (transform applied, flat columns
-    trimmed, nullable columns wrapped). Duplicate paths decode once."""
-    device = eng.resolve_device(device)
+    trimmed, nullable columns wrapped). Duplicate paths decode once. With
+    `mesh`, each file's chunks split over the ranks and every value is this
+    rank's local part of that file (see read_file_device)."""
+    device, part = shard._placement(device, mesh)
     paths = list(dict.fromkeys(paths))  # dedupe, keep order
-    headers, file_chunks = {}, {}
+    headers, file_chunks, spans = {}, {}, {}
     for path in paths:
-        header, raws = _read_raw_file(path)
-        headers[path] = header
-        file_chunks[path] = list(zip(header["chunks"], raws))
+        header, idxs, raws, span = _read_raw_file(path, part)
+        headers[path], spans[path] = header, span
+        file_chunks[path] = [(ci, header["chunks"][ci], raw) for ci, raw in zip(idxs, raws)]
 
     # group every batchable chunk across files by (dtype, signature); slots
     # keep (path, chunk index) so merged outputs route back in order
     groups, singles = {}, []
     for path in paths:
         dtype = headers[path]["dtype"]
-        for ci, (meta, raw) in enumerate(file_chunks[path]):
+        for ci, meta, raw in file_chunks[path]:
             sig = _group_sig(meta)
             if sig is None:
                 singles.append((path, ci, meta, raw))
@@ -487,34 +524,41 @@ def read_files_device(paths, device=None) -> dict:
             meta, raw, meta["n_blocks"], headers[path]["dtype"], device)
 
     return {path: _file_result(
-        path, headers[path],
-        [decoded[(path, ci)] for ci in range(len(file_chunks[path]))], device)
-        for path in paths}
+        path, headers[path], [decoded[(path, ci)] for ci, _, _ in file_chunks[path]],
+        device, *spans[path]) for path in paths}
 
 
-def _read_raw_file(path: str):
-    """Host side of the pipeline: header + every chunk's raw bytes."""
+def _read_raw_file(path: str, part=None):
+    """Host side of the pipeline: the header, the indices and raw bytes of
+    the chunks read (this rank's share with a mesh `part`, else all) and
+    the blocks [first, end) they hold."""
     header = fio.read_header(path)
+    idxs, first, end = _covering(header["chunks"], header["chunk_blocks"], 0,
+                                 header["n_blocks"], part)
     base = fio._payload_base(path)
     raws = []
     with open(path, "rb") as f:
-        for meta in header["chunks"]:
+        for ci in idxs:
+            meta = header["chunks"][ci]
             f.seek(base + meta["offset"])
             raws.append(f.read(meta["nbytes"]))
-    return header, raws
+    return header, idxs, raws, (first, end)
 
 
-def iter_files_device(paths, device=None, prefetch: int = 2):
+def iter_files_device(paths, device=None, prefetch: int = 2, mesh=None):
     """Pipelined multi-file device decode: yields (path, decoded) in order,
     with the host IO of upcoming files prefetched on one reader thread while
     the GPU decodes the current one (kernel launches are asynchronous, so
     the decode of file k overlaps the read of file k+1). The streaming form
     of read_file_device for feeding a consumer from many FLT files. The
-    copies to the device are ordinary pageable ones on the current stream."""
+    copies to the device are ordinary pageable ones on the current stream.
+    With `mesh`, each yielded value is this rank's local part of the file
+    (see read_file_device), and the reader thread reads only this rank's
+    chunks."""
     import collections
     from concurrent.futures import ThreadPoolExecutor
 
-    device = eng.resolve_device(device)
+    device, part = shard._placement(device, mesh)
     paths = list(paths)
     with ThreadPoolExecutor(max_workers=1) as ex:
         pending = collections.deque()
@@ -522,30 +566,33 @@ def iter_files_device(paths, device=None, prefetch: int = 2):
         for _ in range(max(1, prefetch)):
             p = next(it, None)
             if p is not None:
-                pending.append((p, ex.submit(_read_raw_file, p)))
+                pending.append((p, ex.submit(_read_raw_file, p, part)))
         while pending:
             path, fut = pending.popleft()
-            header, raws = fut.result()
+            header, idxs, raws, span = fut.result()
             nxt = next(it, None)
             if nxt is not None:
-                pending.append((nxt, ex.submit(_read_raw_file, nxt)))
-            parts = _decode_chunks_grouped(list(zip(header["chunks"], raws)),
-                                           header["dtype"], device)
-            yield path, _file_result(path, header, parts, device)
+                pending.append((nxt, ex.submit(_read_raw_file, nxt, part)))
+            parts = _decode_chunks_grouped(
+                [(header["chunks"][ci], raw) for ci, raw in zip(idxs, raws)],
+                header["dtype"], device)
+            yield path, _file_result(path, header, parts, device, *span)
 
 
 def read_column_device(path: str, name: str, start: int = 0,
-                       stop: Optional[int] = None, device=None):
+                       stop: Optional[int] = None, device=None, mesh=None):
     """Decode one column of an FLTTAB table file on the accelerator: touches
     only the covering chunks, applies the column's transform, and (for full
     reads of flat-written columns) trims to exact length. Returns a tensor,
     a `fio_table.StringColumn` (u32 codes on the device, the sorted
     dictionary on the host) or a NullableColumn around either. Logical
     dtypes (bool, datetime64, timedelta64) come back as their integer
-    storage; `fio_table.read_column` gives the host view."""
+    storage; `fio_table.read_column` gives the host view. With `mesh`, this
+    rank's local part (see read_blocks_device); a string column's part
+    carries the whole dictionary."""
     from . import fio_table
 
-    device = eng.resolve_device(device)
+    device, part = shard._placement(device, mesh)
     header = fio_table.read_table_header(path)
     col = fio_table._col_meta(header, name)
     dtype = col["dtype"]
@@ -555,20 +602,19 @@ def read_column_device(path: str, name: str, start: int = 0,
     if not 0 <= start <= stop:
         raise IndexError(f"bad block range [{start}, {stop})")
     base_off = fio.payload_base_of(path, fio_table.MAGIC)
+    idxs, first, end = _covering(col["chunks"], col["chunk_blocks"], start, stop, part)
     with open(path, "rb") as f:
-        blocks = _read_chunks_device(f, col["chunks"], base_off,
-                                     col["chunk_blocks"], start, stop, dtype,
-                                     device, col.get("vtype"))
+        blocks = _read_chunks_device(f, col["chunks"], base_off, col["chunk_blocks"],
+                                     idxs, first, end, dtype, device, col.get("vtype"))
         dictionary = (fio_table._load_str_dict(f, base_off, col)
                       if col.get("vtype") == "str" else None)
     out = _apply_transform_device(blocks, col.get("transform"), dtype)
-    if full:
-        out = _trim_flat(out, col.get("n_values"))
+    n_values = col.get("n_values") if full else None
+    out = _trim_flat(out, n_values, first)
     if dictionary is not None:
         # codes stay on the device; predicates run as code compares
         out = fio_table.StringColumn(out, dictionary)
     if "nulls" in col and stop > start:
-        return _wrap_column_nulls(
-            out, path, base_off, col["nulls"], start, stop,
-            col.get("n_values") if full else None, device)
+        return _wrap_column_nulls(out, path, base_off, col["nulls"], first, end,
+                                  _values_from(n_values, first), device)
     return out

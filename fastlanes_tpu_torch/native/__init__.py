@@ -96,21 +96,27 @@ def _compile(lib_dir: str) -> None:
     if errors:
         shutil.rmtree(tmp, ignore_errors=True)
         raise NativeUnavailable(f"failed to build native codec: {errors[0]}")
-    os.replace(tmp, lib_dir)
+    if os.path.isdir(lib_dir):  # a forced rebuild: the old parts go once the new are in
+        old = f"{lib_dir}.{os.getpid()}.old"
+        os.replace(lib_dir, old)
+        os.replace(tmp, lib_dir)
+        shutil.rmtree(old, ignore_errors=True)
+    else:
+        os.replace(tmp, lib_dir)
     last_build_seconds = time.perf_counter() - t0
 
 
-def build() -> str:
-    """Compile the library if it is missing; returns the directory of its
-    parts."""
+def build(force: bool = False) -> str:
+    """Compile the library if it is missing, or always with `force` (under
+    the same file lock); returns the directory of its parts."""
     try:
         lib_dir = library_dir()
         os.makedirs(BUILD_DIR, exist_ok=True)
-        if os.path.isdir(lib_dir):
+        if os.path.isdir(lib_dir) and not force:
             return lib_dir
         with open(os.path.join(BUILD_DIR, "native.lock"), "w") as lock:
             fcntl.flock(lock, fcntl.LOCK_EX)
-            if not os.path.isdir(lib_dir):
+            if force or not os.path.isdir(lib_dir):
                 _compile(lib_dir)
         return lib_dir
     except OSError as e:

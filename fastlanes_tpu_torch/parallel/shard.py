@@ -25,6 +25,14 @@ only where the framework coordinates across blocks:
                            (counts first: ranks may hold unequal parts)
   sharded_roundtrip_check  all-reduce SUM of the mismatches
 
+The reads and aggregations of `fio_device` and `analytics` take `mesh=` too.
+There the split is by CHUNK of an FLT file, not by block: rank r of n takes
+the chunks [r*s, min((r+1)*s, C)) of the C chunks an entry covers, with the
+rule above (`_chunk_span`), so the columns of a table stay aligned and a rank
+reads from disk only its own chunks. A read returns the rank's local part;
+an aggregation feeds the rank's parts into its exact accumulators and meets
+the other ranks once, in `_combine`.
+
 What the port leaves out, by its ground rules (ROADMAP.md): `use_kernels` and
 the routing behind it (one path per op), `planes=` (a u64 column is one
 native tensor here, not two limb planes), the `od` original-order strategy
@@ -33,6 +41,9 @@ of the zdelta decode.
 """
 
 from __future__ import annotations
+
+import pickle
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -69,6 +80,71 @@ def _bounds(n_blocks: int, n: int, r: int):
     """Rank r's blocks [lo, hi) of n_blocks split n ways, padding dropped."""
     s = -(-n_blocks // n)
     return min(r * s, n_blocks), min((r + 1) * s, n_blocks)
+
+
+class _Part(NamedTuple):
+    """This rank's place on a 1-D mesh: its group, the group size n and its
+    index r."""
+    group: object
+    n: int
+    r: int
+
+
+def _placement(device, mesh):
+    """-> (device, part) of a read or an aggregation called with `device` and
+    `mesh`: without a mesh the device rule and no part; with one, the
+    rank's device on the mesh (a `device` that names another raises
+    ValueError) and its _Part."""
+    if mesh is None:
+        return eng.resolve_device(device), None
+    if mesh.ndim != 1:
+        raise ValueError(f"a read or an aggregation takes a 1-D mesh, got {mesh.ndim}-D")
+    group, n, r, mesh_device = _shard(mesh, mesh.mesh_dim_names[0])
+    if device is not None:
+        asked = torch.device(device)
+        if asked.type != mesh_device.type or (
+                asked.index is not None and asked.index != mesh_device.index):
+            raise ValueError(f"device {asked} disagrees with the mesh's device {mesh_device}")
+    return mesh_device, _Part(group, n, r)
+
+
+def _chunk_span(part, n_chunks: int):
+    """This rank's chunks [lo, hi) of `n_chunks` (all of them without a
+    part): the block split of `_bounds`, applied to chunks."""
+    if part is None:
+        return 0, n_chunks
+    return _bounds(n_chunks, part.n, part.r)
+
+
+def _portable(exc: Exception) -> Exception:
+    """`exc`, or a RuntimeError naming it where it does not pickle."""
+    try:
+        return pickle.loads(pickle.dumps(exc))
+    except Exception:  # noqa: BLE001  (any failure to pickle)
+        return RuntimeError(f"{type(exc).__name__}: {exc}")
+
+
+def _combine(part, local) -> list:
+    """The one collective of a sharded aggregation: `local()` on every rank,
+    gathered in rank order (one `all_gather_object` of a small host state,
+    so Python ints stay exact on every backend). Without a part, [local()].
+    A rank whose `local` raised still joins the gather, and then EVERY rank
+    raises the exception of the lowest rank that failed: the one the walk
+    without a mesh would meet first, since the ranks' ranges are in order."""
+    if part is None:
+        return [local()]
+    try:
+        mine, failed = (None, local()), None
+    except Exception as exc:  # noqa: BLE001  (re-raised on every rank below)
+        mine, failed = (_portable(exc), None), exc
+    got = [None] * part.n
+    dist.all_gather_object(got, mine, group=part.group)
+    for r, (exc, _) in enumerate(got):
+        if exc is not None:
+            if r == part.r:
+                raise failed
+            raise exc
+    return [value for _, value in got]
 
 
 def _whole(arr, dtype) -> torch.Tensor:

@@ -129,8 +129,8 @@ def test_windows_and_one_fetch_per_call(table, monkeypatch, window):
     cols, path = table
     want = jan.group_stats(path, "g", "price")
     real = tan._lockstep_chunks
-    monkeypatch.setattr(tan, "_lockstep_chunks", lambda path, names, device, keep=None:
-                        real(path, names, device, keep=keep, window=window))
+    monkeypatch.setattr(tan, "_lockstep_chunks", lambda path, names, device, keep=None, part=None:
+                        real(path, names, device, keep=keep, window=window, part=part))
     before = tan.HOST_FETCHES
     assert_same(tan.group_stats(path, "g", "price", device="cpu"), want)
     assert tan.HOST_FETCHES - before == 1

@@ -223,3 +223,52 @@ def test_the_writer_and_reader_take_the_native_branch(tmp_path, monkeypatch):
     tfio.read_single(path, 1, 5)
     assert {"transpose", "delta", "pack", "undelta_pack", "untranspose",
             "unpack_single"} <= set(calls)
+
+
+class _FakeGxx:
+    """Stands in for the g++ processes `_compile` starts: writes the part
+    named after -o and succeeds (the lock and the renames are under test,
+    not the compiler)."""
+
+    started = 0
+
+    def __init__(self, cmd, **_kw):
+        _FakeGxx.started += 1
+        with open(cmd[cmd.index("-o") + 1], "w") as f:
+            f.write("new")
+        self.returncode = 0
+
+    def communicate(self):
+        return "", ""
+
+
+@pytest.mark.parametrize("force", [False, True])
+def test_build_compiles_when_the_parts_are_missing(tmp_path, monkeypatch, force):
+    lib_dir = str(tmp_path / "build" / "native-key")
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(native, "library_dir", lambda: lib_dir)
+    monkeypatch.setattr(native.subprocess, "Popen", _FakeGxx)
+    _FakeGxx.started = 0
+    assert native.build(force=force) == lib_dir
+    assert _FakeGxx.started == native.PARTS
+    assert sorted(os.listdir(lib_dir)) == sorted(
+        os.path.basename(native._part_path(lib_dir, p)) for p in range(native.PARTS))
+
+
+def test_build_force_rebuilds_parts_that_exist(tmp_path, monkeypatch):
+    """force=False loads what is there; force=True compiles the 8 parts anew
+    under the file lock and swaps them in whole."""
+    lib_dir = str(tmp_path / "build" / "native-key")
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(native, "library_dir", lambda: lib_dir)
+    monkeypatch.setattr(native.subprocess, "Popen", _FakeGxx)
+    os.makedirs(lib_dir)
+    stale = os.path.join(lib_dir, "stale")
+    open(stale, "w").close()
+    _FakeGxx.started = 0
+    assert native.build() == lib_dir and native.build(force=False) == lib_dir
+    assert _FakeGxx.started == 0 and os.path.exists(stale)
+    assert native.build(force=True) == lib_dir
+    assert _FakeGxx.started == native.PARTS and not os.path.exists(stale)
+    assert len(os.listdir(lib_dir)) == native.PARTS
+    assert sorted(os.listdir(tmp_path / "build")) == ["native-key", "native.lock"]

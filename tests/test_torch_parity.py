@@ -27,7 +27,12 @@ reads by bit pattern (the reference returns 64-bit values as uint32 limb
 pairs), and an exception only the same exception type. A failing case names
 the entry, the call, the table's row count and the first differing key or
 index. Each (entry, table) pair is its own case, and computes each of its
-reference answers once."""
+reference answers once.
+
+The mesh axis: every entry that takes `mesh=` (all but distinct, which runs
+on the host, and select and join) answers the same calls again on a
+one-rank mesh (an in-process gloo group), held to the same reference
+answers, which the first pass keeps."""
 
 import functools
 import math
@@ -37,6 +42,7 @@ import types
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from fastlanes_tpu import analytics as jan
 from fastlanes_tpu import fio as jfio
@@ -47,6 +53,7 @@ from fastlanes_tpu_torch import analytics as tan
 from fastlanes_tpu_torch import fio as tfio
 from fastlanes_tpu_torch import fio_device as tdev
 from fastlanes_tpu_torch import fio_table as ttab
+from fastlanes_tpu_torch import parallel
 
 ROW_COUNTS = (0, 1, 1023, 1024, 1025, 3 * 1024 + 5)
 OPS = ("lt", "le", "gt", "ge", "eq", "ne", "in", "notin")
@@ -187,6 +194,14 @@ REF = types.SimpleNamespace(**{e: ref for e, (ref, _) in ENTRY_FUNCTIONS.items()
 PORT = types.SimpleNamespace(**{  # distinct runs on the host: no device argument
     e: port if e == "distinct" else functools.partial(port, device="cpu")
     for e, (_, port) in ENTRY_FUNCTIONS.items()})
+#: the entries that take a mesh
+MESH_ENTRIES = tuple(e for e in ENTRIES if e not in ("distinct", "select", "join"))
+
+
+def port_on(mesh):
+    """The port's entries on `mesh` (same names and signatures)."""
+    return types.SimpleNamespace(**{e: functools.partial(ENTRY_FUNCTIONS[e][1], device="cpu",
+                                                         mesh=mesh) for e in MESH_ENTRIES})
 
 
 def calls(entry: str, t: dict) -> list:
@@ -454,17 +469,46 @@ def test_both_writers_write_the_same_bytes(world, n):
     assert tfio.read_header(t["files"]["u32"]) == jfio.read_header(t["files"]["u32"])
 
 
-@pytest.mark.parametrize("n", ROW_COUNTS)
-@pytest.mark.parametrize("entry", ENTRIES)
-def test_port_answers_equal_the_reference(world, entry, n):
+#: (entry, rows, label) -> the reference's answer, kept for the mesh axis
+REFERENCE = {}
+
+
+def reference(entry, n, label, call):
+    if (entry, n, label) not in REFERENCE:
+        REFERENCE[entry, n, label] = run(call, REF)
+    return REFERENCE[entry, n, label]
+
+
+@pytest.fixture(scope="module")
+def mesh1():
+    """A one-rank gloo group for this module only."""
+    assert not dist.is_initialized()
+    mesh = parallel.make_mesh(device="cpu")
+    yield mesh
+    dist.destroy_process_group()
+
+
+def check(world, entry, n, api):
     t = world[n]
     assert all(t["same_bytes"].values())  # both packages read the one file
     bits = entry.startswith("read_")
     diffs = []
     for label, call in calls(entry, t):
-        d = first_diff(run(call, PORT), run(call, REF), bits)
+        d = first_diff(run(call, api), reference(entry, n, label, call), bits)
         if d:
             diffs.append(f"{entry}({label}) on the {n}-row table{d}")
     kinds = ", ".join(f"{c}: {np.asarray(v).dtype}" for c, v in t["cols"].items())
     assert not diffs, "\n".join(diffs[:10]) + \
         f"\n({len(diffs)} calls differ; the table's columns: {kinds})"
+
+
+@pytest.mark.parametrize("n", ROW_COUNTS)
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_port_answers_equal_the_reference(world, entry, n):
+    check(world, entry, n, PORT)
+
+
+@pytest.mark.parametrize("n", ROW_COUNTS)
+@pytest.mark.parametrize("entry", MESH_ENTRIES)
+def test_port_answers_on_a_mesh_equal_the_reference(world, mesh1, entry, n):
+    check(world, entry, n, port_on(mesh1))
