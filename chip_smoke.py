@@ -1760,44 +1760,47 @@ def lookup(dim_keys, keys):
 
 
 def query_calls(tpath: str, gpath: str, halves: list, dims: dict) -> dict:
-    """label -> the call of every query the `query` phase drives and times."""
+    """label -> call(device, mesh=None) of every query the `query` phase
+    drives and times (the `mesh` phase drives them again on a mesh)."""
+    def select(*args, **kwargs):
+        return lambda device, mesh=None: analytics.select(*args, device=device, mesh=mesh,
+                                                          **kwargs)
+
+    def join(*args, **kwargs):
+        return lambda device, mesh=None: analytics.join(*args, device=device, mesh=mesh,
+                                                        **kwargs)
+
     date_range = [("day", "ge", np.datetime64("2020-01-01")),
                   ("day", "le", np.datetime64("2020-12-31"))]
     return {
-        "select[2 preds]": lambda device: analytics.select(
+        "select[2 preds]": select(
             tpath, ["key", "price", "cur", "visits"],
-            [("cur", "in", ["EUR", "GBP"]), ("qty", "lt", 1_000_000_500)], device=device),
-        "select[8 columns, date range]": lambda device: analytics.select(
-            tpath, None, date_range, device=device),
-        "select[ORDER BY price DESC LIMIT 100]": lambda device: analytics.select(
-            tpath, ["key", "price", "cur"], order_by="price", desc=True, limit=100,
-            device=device),
-        "select[ORDER BY cur LIMIT 300]": lambda device: analytics.select(
-            tpath, ["cur", "key"], order_by="cur", limit=300, device=device),
-        "select[ORDER BY day DESC LIMIT 500]": lambda device: analytics.select(
-            tpath, ["day", "key"], order_by="day", desc=True, limit=500, device=device),
-        "select[ORDER BY store DESC LIMIT 1000]": lambda device: analytics.select(
-            gpath, ["store", "amount"], order_by="store", desc=True, limit=1000,
-            device=device),
-        "select[ORDER BY units DESC LIMIT 1000 WHERE store eq 3]":
-            lambda device: analytics.select(gpath, ["units", "amount"], [("store", "eq", 3)],
-                                            order_by="units", desc=True, limit=1000,
-                                            device=device),
-        "select[ORDER BY units DESC LIMIT 1000 WHERE store eq 3 AND units lt 2]":
-            lambda device: analytics.select(gpath, ["units", "amount"],
-                                            [("store", "eq", 3), ("units", "lt", 2)],
-                                            order_by="units", desc=True, limit=1000,
-                                            device=device),
-        "select[LIMIT 100000 WHERE cur eq JPY]": lambda device: analytics.select(
-            tpath, ["key", "cur"], [("cur", "eq", "JPY")], limit=100_000, device=device),
-        "select[2 files, ORDER BY price LIMIT 50]": lambda device: analytics.select(
-            halves, ["store"], order_by="price", desc=True, limit=50, device=device),
-        "join[groups x skus, inner, store lt 100]": lambda device: analytics.join(
+            [("cur", "in", ["EUR", "GBP"]), ("qty", "lt", 1_000_000_500)]),
+        "select[8 columns, date range]": select(tpath, None, date_range),
+        "select[ORDER BY price DESC LIMIT 100]": select(
+            tpath, ["key", "price", "cur"], order_by="price", desc=True, limit=100),
+        "select[ORDER BY cur LIMIT 300]": select(tpath, ["cur", "key"], order_by="cur",
+                                                 limit=300),
+        "select[ORDER BY day DESC LIMIT 500]": select(
+            tpath, ["day", "key"], order_by="day", desc=True, limit=500),
+        "select[ORDER BY store DESC LIMIT 1000]": select(
+            gpath, ["store", "amount"], order_by="store", desc=True, limit=1000),
+        "select[ORDER BY units DESC LIMIT 1000 WHERE store eq 3]": select(
+            gpath, ["units", "amount"], [("store", "eq", 3)], order_by="units", desc=True,
+            limit=1000),
+        "select[ORDER BY units DESC LIMIT 1000 WHERE store eq 3 AND units lt 2]": select(
+            gpath, ["units", "amount"], [("store", "eq", 3), ("units", "lt", 2)],
+            order_by="units", desc=True, limit=1000),
+        "select[LIMIT 100000 WHERE cur eq JPY]": select(
+            tpath, ["key", "cur"], [("cur", "eq", "JPY")], limit=100_000),
+        "select[2 files, ORDER BY price LIMIT 50]": select(
+            halves, ["store"], order_by="price", desc=True, limit=50),
+        "join[groups x skus, inner, store lt 100]": join(
             gpath, dims["skus"]["path"], "sku", columns=["store", "amount"],
-            preds=[("store", "lt", 100)], device=device),
-        "join[table x currencies, left, qty lt]": lambda device: analytics.join(
+            preds=[("store", "lt", 100)]),
+        "join[table x currencies, left, qty lt]": join(
             tpath, dims["currencies"]["path"], "cur", columns=["key", "cur"],
-            preds=[("qty", "lt", 1_000_000_250)], how="left", device=device),
+            preds=[("qty", "lt", 1_000_000_250)], how="left"),
     }
 
 
@@ -1875,7 +1878,7 @@ def phase_query(table: dict, groups: dict, tmp: str, device=None) -> dict:
     calls, rows_out = {}, {}
     for label, call in queries.items():
         got, counts = counted(lambda: call(device))
-        want = oracles.pop(label)
+        want = oracles[label]
         if not same_rows(got, want):
             raise AssertionError(f"{label}: the rows differ from the oracle's")
         rows_out[label] = len(next(iter(want.values())))
@@ -1913,8 +1916,10 @@ def phase_query(table: dict, groups: dict, tmp: str, device=None) -> dict:
                   "write_seconds": d["write_seconds"]} for n, d in dims.items()},
           "calls": calls, "writer_walls": writers, "launches": launches,
           "launches_by_dtype": by_dtype})
+    # the oracles stay for the `mesh` phase, which drives these calls again
     return {"launches": launches, "by_dtype": by_dtype, "rows_out": rows_out,
-            "calls": queries, "dims": {n: d["path"] for n, d in dims.items()}}
+            "calls": queries, "dims": {n: d["path"] for n, d in dims.items()},
+            "oracles": oracles}
 
 
 def phase_native(rng) -> dict:
@@ -2226,18 +2231,24 @@ MESH_KERNELS = ("unpack", "unfor_pack", "undelta_pack", "undelta_pack_orig",
                 "unzdelta_pack_orig")
 MESH_READS = ("read_blocks_device", "read_file_device", "read_files_device",
               "iter_files_device", "read_column_device")
+#: the row queries of the `mesh` path: the `query` phase's calls
+MESH_ROWS = ("select", "join")
 
 
-def mesh_files(read_paths: dict, table: dict, groups: dict) -> dict:
+def mesh_files(read_paths: dict, table: dict, groups: dict, queries: dict) -> dict:
     return {"headline": read_paths["headline_u32_w3"], "table": table["path"],
             "groups": groups["path"], "few": [read_paths[n] for n in
-                                              ("ffor_u32", "delta_u32", "zdelta_u32")]}
+                                              ("ffor_u32", "delta_u32", "zdelta_u32")],
+            "halves": groups["halves"],
+            "dims": {n: {"path": p} for n, p in queries["dims"].items()}}
 
 
 def mesh_calls(files: dict) -> dict:
     """label -> call(device, mesh): every entry that takes `mesh=`, on the read
     phase's headline file (and three other read files), the table phase's
-    table and the aggregate phase's group table."""
+    table and the aggregate phase's group table; and every select and join
+    of the `query` phase (the table, the group table, its two halves and the
+    dimension tables)."""
     h, t, g, few = files["headline"], files["table"], files["groups"], files["few"]
     hb = fio.read_header(h)["n_blocks"]
     names = list(fio_table.read_table_header(t)["columns"])
@@ -2276,6 +2287,7 @@ def mesh_calls(files: dict) -> dict:
         "quantile[qty]": lambda d, m: analytics.quantile(
             t, "qty", [0.01, 0.5, 0.99], device=d, mesh=m),
         "median[change]": lambda d, m: analytics.median(t, "change", device=d, mesh=m),
+        **query_calls(t, g, files["halves"], files["dims"]),
     }
 
 
@@ -2487,7 +2499,7 @@ dist.destroy_process_group()
 
 def two_rank_mesh_run(files: dict, tmp: str, device) -> tuple:
     """Every call of `mesh_calls` in two child processes on the one card, over
-    gloo: -> (each rank's JSON line, each rank's aggregation answers). A
+    gloo: -> (each rank's JSON line, each rank's answers but the reads). A
     child that fails, prints no line or runs past its time fails the smoke."""
     import pickle
 
@@ -2503,7 +2515,7 @@ def two_rank_mesh_run(files: dict, tmp: str, device) -> tuple:
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for rank in range(2)]
     try:
-        got = [p.communicate(timeout=300) for p in procs]
+        got = [p.communicate(timeout=600) for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2521,23 +2533,34 @@ def two_rank_mesh_run(files: dict, tmp: str, device) -> tuple:
     return lines, answers
 
 
-def phase_mesh(read_paths: dict, read_columns: dict, table: dict, groups: dict, tmp: str,
-               device=None, card: str = "cpu") -> dict:
-    """`mesh=` on the five reads and ten aggregations. One rank in this
-    process (NCCL on the card): every answer equal to the host reader (a
-    read) or the NumPy oracle (an aggregation) and to the call without a
-    mesh, with its wall beside the unsharded wall. Then two ranks over gloo
-    on the one card in two child processes: each checks its local reads
-    against the host reader's rows of its chunks; here each rank's
-    aggregation answers are held to the oracles and to each other."""
+def same_answer(label: str, got, want) -> bool:
+    """Two answers of the mesh call `label` equal: rows by same_rows with
+    equal dtypes (unicode widths included), stats by same_stats with the
+    same keys in the same order."""
+    if label.startswith(MESH_ROWS):
+        return same_rows(got, want) and all(got[n].dtype == w.dtype for n, w in want.items())
+    return same_stats(got, want) and (not isinstance(want, dict) or list(got) == list(want))
+
+
+def phase_mesh(read_paths: dict, read_columns: dict, table: dict, groups: dict,
+               queries: dict, tmp: str, device=None, card: str = "cpu") -> dict:
+    """`mesh=` on the five reads, ten aggregations and two row queries. One
+    rank in this process (NCCL on the card): every answer equal to the host
+    reader (a read), the NumPy oracle (an aggregation, or the `query` phase's
+    oracle of a select or join) and to the call without a mesh, with its wall
+    beside the unsharded wall. Then two ranks over gloo on the one card in
+    two child processes: each checks its local reads against the host
+    reader's rows of its chunks; here each rank's other answers are held to
+    the oracles and to each other."""
     from fastlanes_tpu_torch import parallel
     import torch.distributed as dist
 
     device = eng.resolve_device(device)
     t0 = time.perf_counter()
-    files = mesh_files(read_paths, table, groups)
+    files = mesh_files(read_paths, table, groups, queries)
     calls = mesh_calls(files)
     oracles = mesh_oracles(read_columns, table["columns"], groups["columns"])
+    oracles.update(queries["oracles"])
     oracle_seconds = time.perf_counter() - t0
     if dist.is_initialized():
         raise AssertionError("a process group is already initialized")
@@ -2546,7 +2569,11 @@ def phase_mesh(read_paths: dict, read_columns: dict, table: dict, groups: dict, 
 
     def check(label, got, rank):
         want = oracles[label]
-        if not same_stats(got, want) or (isinstance(want, dict) and list(got) != list(want)):
+        if label.startswith(MESH_ROWS):
+            if not same_rows(got, want):
+                raise AssertionError(f"mesh {label} at {rank}: the rows differ from the "
+                                     "oracle's")
+        elif not same_answer(label, got, want):
             raise AssertionError(f"mesh {label} at {rank}: {got!r} differs from the "
                                  f"oracle {want!r}"[:2000])
 
@@ -2568,8 +2595,7 @@ def phase_mesh(read_paths: dict, read_columns: dict, table: dict, groups: dict, 
             if not same_device(call(None, mesh), plain):
                 raise AssertionError(f"mesh {label} at one rank differs from the call "
                                      "without a mesh")
-        elif not (same_stats(plain, answers[label]) and
-                  (not isinstance(plain, dict) or list(plain) == list(answers[label]))):
+        elif not same_answer(label, answers[label], plain):
             raise AssertionError(f"mesh {label}: {answers[label]!r} differs from the call "
                                  f"without a mesh {plain!r}"[:2000])
         del plain
@@ -2591,13 +2617,17 @@ def phase_mesh(read_paths: dict, read_columns: dict, table: dict, groups: dict, 
             check(label, answer, f"rank {line['rank']} of 2")
         if device.type == "cuda" and not any(c["launches"] for c in line["calls"].values()):
             raise AssertionError(f"mesh rank {line['rank']} launched no kernel")
-    if not all(same_stats(rank_answers[0][k], rank_answers[1][k]) for k in rank_answers[0]):
-        raise AssertionError("the two ranks' aggregation answers differ")
+    differ = [k for k in rank_answers[0] if not same_answer(k, rank_answers[1][k],
+                                                            rank_answers[0][k])]
+    if differ:
+        raise AssertionError(f"the two ranks' answers differ: {differ}")
+    del answers, rank_answers
     emit({"phase": "mesh", "tolerance": 0, "card": card, "device": str(device),
           "split": "rank r of n takes the chunks [r*s, min((r+1)*s, C)), s = ceil(C / n), "
                    "of the C chunks a call covers in each file",
           "oracle": "reads: the host reader's rows of the rank's chunks; aggregations: "
-                    "numpy in this script, and the call without a mesh",
+                    "numpy in this script; select and join: the query phase's numpy "
+                    "oracles (ties by window, then row); and the call without a mesh",
           "oracle_seconds": oracle_seconds,
           "world_1": {"backend": backend, "seconds": world_1_seconds, "calls": report},
           "world_2": {"backend": lines[0]["backend"], "device": lines[0]["device"],
@@ -3513,8 +3543,9 @@ def main() -> int:
                        ("unpack", "unfor_pack", "undelta_pack", "undelta_pack_orig"))
         queries = drive("query", lambda: phase_query(table, groups, tmp),
                         ("unpack", "unfor_pack", "undelta_pack_orig"))
-        drive("mesh", lambda: phase_mesh(read_state["paths"], columns, table, groups, tmp,
-                                         card=info["nvidia_smi"]), MESH_KERNELS)
+        drive("mesh", lambda: phase_mesh(read_state["paths"], columns, table, groups, queries,
+                                         tmp, card=info["nvidia_smi"]), MESH_KERNELS)
+        queries.pop("oracles")
         drive("shard", lambda: phase_shard(columns, encode_state["device_columns"],
                                            shard_encoded, tmp, card=info["nvidia_smi"]),
               SHARD_KERNELS)

@@ -180,8 +180,10 @@ def _decoded_chunks(path: str, column: Optional[str], device,
 
     `part` (a mesh rank's place, parallel.shard._Part) walks only this
     rank's chunks (shard._chunk_span): they alone are read from disk and
-    decoded, windows start at the range's first chunk, and `valid`, the
-    validity mask and `keep` keep their file-wide positions."""
+    decoded, and `valid`, the validity mask and `keep` keep their file-wide
+    positions. Windows lie on the file's grid (`_windows`), so each window
+    of the walk without a part is one window of one rank, or two pieces of
+    it on two neighbouring ranks."""
     chunks, cdtype, transform, vtype, n_values, base_off, nulls_meta = \
         _column_layout(path, column)
     lo, hi = shard._chunk_span(part, len(chunks))
@@ -247,8 +249,7 @@ def _decoded_chunks(path: str, column: Optional[str], device,
                         natural=_run_natural(sub))
                     yield from emit(parts, starts[sub[0]])
         else:
-            for i in range(lo, hi, window):
-                idxs = range(i, min(i + window, hi))
+            for idxs in _windows(lo, hi, window):
                 if keep is not None:
                     # trim the skippable prefix/suffix of the window (the
                     # interior decodes whole so the part stays one
@@ -263,6 +264,16 @@ def _decoded_chunks(path: str, column: Optional[str], device,
                 yield from emit(
                     [fio_device._concat_parts(ps, cdtype, device, vtype)],
                     starts[idxs[0]])
+
+
+def _windows(lo: int, hi: int, window: int):
+    """The lockstep windows of the chunks [lo, hi), each a range: cut at the
+    multiples of `window` counted from the file's chunk 0, so a range that
+    starts inside a window (a mesh rank's) starts with the rest of it."""
+    while lo < hi:
+        end = min((lo // window + 1) * window, hi)
+        yield range(lo, end)
+        lo = end
 
 
 def _probe_epoch(path, column, value):
@@ -2015,7 +2026,7 @@ def _column_meta(path: str, header: dict, names) -> dict:
 
 
 def select(path, columns=None, preds=(), limit: Optional[int] = None, device=None,
-           order_by: Optional[str] = None, desc: bool = False) -> dict:
+           order_by: Optional[str] = None, desc: bool = False, mesh=None) -> dict:
     """Materialise the rows matching every predicate: projection and
     selection pushdown. Only the requested columns decode, the predicates
     are evaluated on the device, and only matching rows reach the host.
@@ -2031,14 +2042,46 @@ def select(path, columns=None, preds=(), limit: Optional[int] = None, device=Non
     bits and highest row first for 64-bit keys, the JAX package's order. A
     row that fails a predicate or has a null order key is never a candidate
     (there the JAX package can return one; ROADMAP.md, Queue 3). Without
-    `order_by`, `limit` stops the file walk early, in file order."""
-    from . import fio_table
+    `order_by`, `limit` stops the file walk early, in file order.
 
-    device = eng.resolve_device(device)
+    With `mesh` (parallel.make_mesh), each rank reads and decodes only its
+    share of every file's chunks (its walk stops at its own `limit`), and
+    the ranks' rows meet in ONE all_gather_object: every rank returns the
+    answer without a mesh."""
+    device, part = shard._placement(device, mesh)
     paths = _paths(path)
     if len(paths) > 1:
-        return _select_dataset(paths, columns, list(preds), limit, device, order_by, desc)
-    path = paths[0]
+        return _select_dataset(paths, columns, list(preds), limit, device, order_by, desc,
+                               part)
+    plan = _select_plan(paths[0], columns, preds, order_by)
+    columns = plan[0]
+    if order_by is not None and limit is not None:
+        states = shard._combine(part, lambda: _rank_files(paths, lambda p, _left: [
+            (0, _topk_candidates(p, plan, limit, device, order_by, desc, part))], None, part))
+        return _topk_rows(states, 0, columns, limit, desc)
+    states = shard._combine(part, lambda: _rank_files(
+        paths, lambda p, left: _select_rows(p, plan, left, device, order_by, part), limit, part))
+    out = {n: [] for n in columns}
+    okeys = []  # order_by without limit: carry the key column, sort after
+    for _f, (vals, _extra) in _merged_rows(states, 1, limit):
+        for c in columns:
+            out[c].append(vals[c])
+        if order_by is not None:
+            okeys.append(vals[order_by])
+    result = {n: _concat_parts(out[n]) for n in columns}
+    if order_by is not None and okeys:
+        order = _order_of(_concat_parts(okeys), desc)
+        result = {n: result[n][order] for n in result}
+    return result
+
+
+def _select_plan(path, columns, preds, order_by) -> tuple:
+    """(columns, preds, names, meta, keep) of select() over one table file,
+    from its header: the projected columns (default: all), the predicates in
+    the file's domain, every column the walk decodes, their _column_meta and
+    the predicates' zone-map keep."""
+    from . import fio_table
+
     with open(path, "rb") as f:
         if not f.read(8).startswith(b"FLTTAB1"):
             raise ValueError("select() takes an FLTTAB table file")
@@ -2048,17 +2091,19 @@ def select(path, columns=None, preds=(), limit: Optional[int] = None, device=Non
     preds = _normalize_preds(path, list(preds))
     names = list(dict.fromkeys(
         [p[0] for p in preds] + list(columns) + ([order_by] if order_by is not None else [])))
-    meta = _column_meta(path, header, names)
-    keep = _zone_keep(path, preds, names=names)
-    if order_by is not None and limit is not None:
-        return _select_topk(path, columns, preds, limit, device, order_by, desc, names,
-                            meta, keep)
+    return (columns, preds, names, _column_meta(path, header, names),
+            _zone_keep(path, preds, names=names))
 
+
+def _select_rows(path, plan, limit, device, order_by, part):
+    """Yield (n, ({name: host values}, ())) for each lockstep window of this
+    rank's chunks of one table file: its n rows that match the plan's
+    predicates, with the projected columns and the order column. Stops
+    after `limit` rows."""
+    columns, preds, names, meta, keep = plan
     fetched = list(columns) + ([order_by] if order_by is not None else [])
-    out = {n: [] for n in columns}
-    okeys = []  # order_by without limit: carry the key column, sort after
     taken = 0
-    for rows in _lockstep_chunks(path, names, device, keep=keep):
+    for rows in _lockstep_chunks(path, names, device, keep=keep, part=part):
         valid = rows[names[0]][3]
         if valid == 0:
             continue
@@ -2067,22 +2112,59 @@ def select(path, columns=None, preds=(), limit: Optional[int] = None, device=Non
             idx = torch.arange(valid, device=device)
         else:
             idx = _rows_of(mask[:valid])
-        if order_by is None and limit is not None and taken + idx.numel() > limit:
+        if limit is not None and taken + idx.numel() > limit:
             idx = idx[:limit - taken]
         n = idx.numel()
         taken += n
-        vals, _ = _gather_columns(rows, fetched, meta, idx, n)
-        for c in columns:
-            out[c].append(vals[c])
-        if order_by is not None:
-            okeys.append(vals[order_by])
-        if order_by is None and limit is not None and taken >= limit:
+        yield n, (_gather_columns(rows, fetched, meta, idx, n)[0], ())
+        if limit is not None and taken >= limit:
+            return
+
+
+def _rank_files(paths, walk, limit, part) -> list:
+    """This rank's share of a row walk over `paths`: [(items, exception)] a
+    file, in file order. `walk(path, rows_left)` yields (n, item) for n
+    rows. The walk stops after `limit` rows over all files (a later row of
+    this rank cannot be among the call's first `limit`: every row before it
+    in the call's order is before it on this rank too), and at the first
+    exception, which is kept in its place for the merge to raise there (as
+    the walk without a mesh would, unless `limit` rows came first)."""
+    out, taken = [], 0
+    for p in paths:
+        items = []
+        try:
+            for n, item in walk(p, None if limit is None else limit - taken):
+                items.append((n, item))
+                taken += n
+        except Exception as exc:  # noqa: BLE001  (raised by the merge, in its place)
+            out.append((items, exc if part is None else shard._portable(exc)))
             break
-    result = {n: _concat_parts(out[n]) for n in columns}
-    if order_by is not None and okeys:
-        order = _order_of(_concat_parts(okeys), desc)
-        result = {n: result[n][order] for n in result}
-    return result
+        out.append((items, None))
+        if limit is not None and taken >= limit:
+            break
+    return out
+
+
+def _merged_rows(states, n_files: int, limit):
+    """Yield (file, (values, extra)) of the ranks' row walks (_rank_files, in
+    rank order) in file, rank and window order: the order of the walk
+    without a mesh, as the ranks' chunk ranges are in order. Cut at `limit`
+    rows; where a rank's walk raised, raise its exception there."""
+    taken = 0
+    for f in range(n_files):
+        for mine in states:
+            items, exc = mine[f] if f < len(mine) else ((), None)
+            for n, (vals, extra) in items:
+                if limit is not None and taken + n > limit:
+                    n = limit - taken
+                    vals = {c: v[:n] for c, v in vals.items()}
+                    extra = tuple(x[:n] for x in extra)
+                taken += n
+                yield f, (vals, extra)
+                if limit is not None and taken >= limit:
+                    return
+            if exc is not None:
+                raise exc
 
 
 def _order_of(keys, desc: bool) -> np.ndarray:
@@ -2106,29 +2188,37 @@ def _concat_row_dicts(parts, names) -> dict:
             for n in names}
 
 
-def _select_dataset(paths, columns, preds, limit, device, order_by, desc):
+def _select_dataset(paths, columns, preds, limit, device, order_by, desc, part):
     """select() over a sharded dataset: per-file pushdown (each file owns its
     dictionaries), then a column-wise merge; ORDER BY re-sorts the merged
-    candidates on the host and trims to the limit."""
+    candidates on the host and trims to the limit. With a mesh `part`, each
+    file splits over the ranks and the call combines once."""
     from . import fio_table
 
     if columns is None:
         columns = list(fio_table.read_table_header(paths[0])["columns"])
+
+    def file_rows(names, lim) -> dict:
+        states = shard._combine(part, lambda: _rank_files(paths, lambda p, left: _select_rows(
+            p, _select_plan(p, names, preds, None), left, device, None, part), lim, part))
+        per_file = [{n: [] for n in names} for _ in paths]
+        for f, (vals, _extra) in _merged_rows(states, len(paths), lim):
+            for n in names:
+                per_file[f][n].append(vals[n])
+        return _concat_row_dicts(
+            [{n: _concat_parts(v) for n, v in rows.items()} for rows in per_file], names)
+
     if order_by is None:
-        parts = []
-        remaining = limit
-        for p in paths:
-            rows = select(p, columns, preds, remaining, device)
-            parts.append(rows)
-            if remaining is not None:
-                remaining -= len(rows[columns[0]]) if columns else 0
-                if remaining <= 0:
-                    break
-        return _concat_row_dicts(parts, columns)
+        return file_rows(columns, limit)
     inner = list(dict.fromkeys(list(columns) + [order_by]))
-    parts = [select(p, inner, preds, limit, device,
-                    order_by if limit is not None else None, desc) for p in paths]
-    combined = _concat_row_dicts(parts, inner)
+    if limit is None:
+        combined = file_rows(inner, None)
+    else:
+        states = shard._combine(part, lambda: _rank_files(paths, lambda p, _left: [
+            (0, _topk_candidates(p, _select_plan(p, inner, preds, order_by), limit, device,
+                                 order_by, desc, part))], None, part))
+        combined = _concat_row_dicts(
+            [_topk_rows(states, f, inner, limit, desc) for f in range(len(paths))], inner)
     if len(combined[order_by]):
         order = _order_of(combined[order_by], desc)
         combined = {n: v[order] for n, v in combined.items()}
@@ -2170,22 +2260,42 @@ def _top_rows(flat: _Flat, ok, k: int, largest: bool) -> torch.Tensor:
     return torch.cat([n_ok.reshape(1), rows, key[rows.clamp(min=0)]])
 
 
-def _select_topk(path, columns, preds, k, device, order_by, desc, names, meta, keep=None):
-    """ORDER BY order_by [DESC] LIMIT k pushdown: each lockstep window
-    reduces to k candidate rows on the device (_top_rows) and only the
-    candidates' projected values reach the host merge. Zone-map bounds on
-    the order column visit windows best bound first, in batches growing x4,
-    and stop once the k-th candidate beats every remaining window."""
+
+
+def _topk_candidates(path, plan, k, device, order_by, desc, part) -> tuple:
+    """ORDER BY order_by [DESC] LIMIT k over this rank's chunks of one table
+    file: (the order key's bits, or None where no row ranked; its best k
+    candidates as (key, window, row, seq, j), window and row counted from
+    the file's start, in the order _topk_rows merges them; store: the
+    projected values of each window that gave candidates, the candidate at
+    store[seq][j]). Each lockstep window reduces to k candidate rows on the
+    device (_top_rows) and only theirs reach the host. Zone-map bounds on the
+    order column visit the windows best bound first, in batches growing x4,
+    and stop once the k-th candidate beats every remaining window: a row of
+    the call's best k is among its rank's best k."""
+    columns, preds, names, meta, keep = plan
+    chunks, ocdt_l, otr_l, ovt_l, _nv, _bo, _nm = _column_layout(path, order_by)
+    n_chunks = len(chunks)
+    win = _LOCKSTEP_WINDOW
+    windows = list(_windows(*shard._chunk_span(part, n_chunks), win))
+    first_row = [0]
+    for m in chunks:
+        first_row.append(first_row[-1] + m["n_blocks"] * layout.BLOCK)
     store = []    # per contributing window: {col: gathered values}
-    entries = []  # (key, window index, store seq, emit position)
+    entries = []  # (key, window, row, store seq, emit position)
     bits = None   # the order key's width, once a row ranked
 
-    def visit(keep_w, widx_of_part):
+    def visit(keep_w):
         nonlocal bits
-        part_i = 0
-        for rows in _lockstep_chunks(path, names, device, keep=keep_w):
-            widx = widx_of_part[part_i]
-            part_i += 1
+        # the windows that yield a part (a chunk of theirs is kept), each
+        # from its first kept chunk
+        spans = []
+        for idxs in windows:
+            kept = [c for c in idxs if keep_w is None or keep_w[c]]
+            if kept:
+                spans.append((idxs[0] // win, first_row[kept[0]]))
+        parts = _lockstep_chunks(path, names, device, keep=keep_w, window=win, part=part)
+        for rows, (widx, row0) in zip(parts, spans, strict=True):
             valid = rows[names[0]][3]
             if valid == 0:
                 continue
@@ -2208,26 +2318,17 @@ def _select_topk(path, columns, preds, k, device, order_by, desc, names, meta, k
             chunk_vals, _ = _gather_columns(rows, columns, meta, idx, take)
             seq = len(store)
             store.append(chunk_vals)
-            entries.extend((key, widx, seq, j) for j, (key, _r) in enumerate(cands))
+            entries.extend((key, widx, row0 + r, seq, j) for j, (key, r) in enumerate(cands))
 
-    chunks, ocdt_l, otr_l, ovt_l, _nv, _bo, _nm = _column_layout(path, order_by)
-    n_chunks = len(chunks)
-    win = _LOCKSTEP_WINDOW
-    windows = list(range(0, n_chunks, win))
     if all("stats" not in c for c in chunks):
-        # no zone maps: one sequential pass; parts only come from windows the
-        # predicates' keep leaves alive
-        yielding = [wi for wi, start in enumerate(windows)
-                    if keep is None or any(keep[c] for c in range(start,
-                                                                  min(start + win, n_chunks)))]
-        visit(keep, yielding)
+        # no zone maps: one sequential pass
+        visit(keep)
     else:
         zkind, zbits = zonemaps.topk_kind(ocdt_l, ovt_l, otr_l)
         wb = {}
-        for wi, start in enumerate(windows):
+        for wi, idxs in enumerate(windows):
             bs = [zonemaps.topk_bound(chunks[c], zkind, zbits, desc)
-                  for c in range(start, min(start + win, n_chunks))
-                  if keep is None or keep[c]]
+                  for c in idxs if keep is None or keep[c]]
             bs = [_bound_int(b) for b in bs if b is not None]
             if bs:
                 wb[wi] = max(bs) if desc else min(bs)
@@ -2241,32 +2342,54 @@ def _select_topk(path, columns, preds, k, device, order_by, desc, names, meta, k
                 b = wb[order[pos]]
                 if (b < kth) if desc else (b > kth):
                     break
-            take = sorted(order[pos:pos + batch])
+            kl = [False] * n_chunks
+            for wi in order[pos:pos + batch]:
+                for c in windows[wi]:
+                    kl[c] = keep is None or keep[c]
             pos += batch
             batch *= 4
-            kl = [False] * n_chunks
-            for wi in take:
-                for c in range(windows[wi], min(windows[wi] + win, n_chunks)):
-                    kl[c] = keep is None or keep[c]
-            # every taken window yields exactly one part iff any of its chunks
-            # stays kept (wb membership guarantees it)
-            visit(kl, take)
-    # window order then emit order, THEN a stable key sort: equal keys resolve
-    # exactly as the sequential walk did
-    entries.sort(key=lambda e: (e[1], e[3]))
-    entries.sort(key=lambda e: e[0], reverse=desc)
-    entries = [(seq, j) for _key, _w, seq, j in entries[:k]]
+            # every taken window yields exactly one part (wb membership
+            # guarantees a kept chunk)
+            visit(kl)
+    entries.sort(key=_candidate_order(bits, desc))
+    return bits, entries[:k], store
+
+
+def _candidate_order(bits, desc: bool):
+    """Sort key of a candidate (key, window, row, ...): best key first, then
+    window, then row, lowest first for keys of up to 32 bits and highest
+    first for 64-bit keys. It is the order of the walk without a mesh, where
+    each window's candidates come out by key and row and a stable key sort
+    over the windows in order follows."""
+    tie = -1 if bits == 64 else 1
+    return lambda e: (-e[0] if desc else e[0], e[1], tie * e[2])
+
+
+def _topk_rows(states, f: int, columns, k: int, desc: bool) -> dict:
+    """The rows of ORDER BY ... LIMIT k over file `f` from every rank's
+    candidates there (_topk_candidates, through _rank_files): the best k of
+    their union. Raises the lowest rank's exception where one raised."""
+    cands, bits = [], None
+    for mine in states:  # a rank stops early only where it raised
+        items, exc = mine[f]
+        if exc is not None:
+            raise exc
+        for _n, (b, entries, store) in items:
+            bits = b if b is not None else bits
+            cands += [(key, widx, row, store[seq], j) for key, widx, row, seq, j in entries]
+    cands.sort(key=_candidate_order(bits, desc))
+    chosen = [(vals, j) for _key, _w, _r, vals, j in cands[:k]]
     result = {}
     for n in columns:
-        if not entries:
+        if not chosen:
             result[n] = np.empty(0)
             continue
-        data = [np.ma.getdata(store[c][n])[j] for c, j in entries]
-        msk = [bool(np.ma.getmaskarray(store[c][n])[j]) for c, j in entries]
-        dt = np.ma.getdata(store[entries[0][0]][n]).dtype
+        data = [np.ma.getdata(vals[n])[j] for vals, j in chosen]
+        msk = [bool(np.ma.getmaskarray(vals[n])[j]) for vals, j in chosen]
+        dt = np.ma.getdata(chosen[0][0][n]).dtype
         # unicode widths differ per window: numpy takes the largest
         arr = np.asarray(data) if dt.kind == "U" else np.asarray(data, dt)
-        if any(isinstance(store[c][n], np.ma.MaskedArray) for c, _j in entries):
+        if any(isinstance(vals[n], np.ma.MaskedArray) for vals, _j in chosen):
             result[n] = np.ma.MaskedArray(arr, mask=np.asarray(msk))
         else:
             result[n] = arr
@@ -2282,7 +2405,7 @@ def _join_match(keys, right_sorted):
 
 
 def join(left_path, right_path, on: str, columns=None, right_columns=None, preds=(),
-         how: str = "inner", limit: Optional[int] = None, device=None) -> dict:
+         how: str = "inner", limit: Optional[int] = None, device=None, mesh=None) -> dict:
     """Dimension join: enrich the (large, streamed) LEFT table with columns
     of the (small) RIGHT table matched on the `on` key column.
 
@@ -2298,12 +2421,15 @@ def join(left_path, right_path, on: str, columns=None, right_columns=None, preds
     to 32 bits and strings (64-bit and float keys raise). Right columns whose
     names collide get a "_right" suffix.
 
-    Returns {name: numpy array} like select()."""
+    With `mesh`, every rank decodes the right side, streams only its share
+    of the left chunks (stopping at its own `limit`), and the ranks' rows
+    meet in ONE all_gather_object: every rank returns the answer without a
+    mesh. Returns {name: numpy array} like select()."""
     from . import fio_table
 
     if how not in ("inner", "left"):
         raise ValueError(f"how must be 'inner' or 'left', got {how!r}")
-    device = eng.resolve_device(device)
+    device, part = shard._placement(device, mesh)
     lpaths = _paths(left_path)
     rheader = fio_table.read_table_header(right_path)
     if right_columns is None:
@@ -2338,9 +2464,9 @@ def join(left_path, right_path, on: str, columns=None, right_columns=None, preds
         raise ValueError(f"right key column {on!r} has duplicates")
     rvals_sorted = {c: v[order] for c, v in rvals.items()}
 
-    out = {n: [] for n in out_names}
-    taken = 0
-    for p in lpaths:
+    def walk(p, left):
+        """(n, ({left column: values}, (right row, matched?))) a window of
+        this rank's chunks of left file `p`, stopping after `left` rows."""
         preds_p = _normalize_preds(p, list(preds))
         names = list(dict.fromkeys([q[0] for q in preds_p] + list(columns) + [on]))
         col_meta = _column_meta(p, fio_table.read_table_header(p), names)
@@ -2356,7 +2482,8 @@ def join(left_path, right_path, on: str, columns=None, right_columns=None, preds
             hit = (rk_sorted[pos_c] == ld) if rk_sorted.size else np.zeros(ld.size, bool)
             tr_dev = torch.from_numpy(np.where(hit, pos_c, -1).astype(np.int64)).to(device)
         keep = _zone_keep(p, preds_p, names=names)
-        for rows in _lockstep_chunks(p, names, device, keep=keep):
+        taken = 0
+        for rows in _lockstep_chunks(p, names, device, keep=keep, part=part):
             valid = rows[names[0]][3]
             if valid == 0:
                 continue
@@ -2390,32 +2517,34 @@ def join(left_path, right_path, on: str, columns=None, right_columns=None, preds
                 idx = torch.arange(valid, device=device)
             else:
                 idx = _rows_of(keep_rows[:valid])
-            if limit is not None and taken + idx.numel() > limit:
-                idx = idx[:limit - taken]
+            if left is not None and taken + idx.numel() > left:
+                idx = idx[:left - taken]
             n = idx.numel()
             taken += n
             # left columns, the right row and the match flag: one fetch
-            vals, (ridx_np, ok_np) = _gather_columns(rows, columns, col_meta, idx, n,
-                                                     extra=(ridx, matched))
-            for c in columns:
-                out[c].append(vals[c])
-            # right columns: host gather by matched sorted-row index
-            safe = np.where(ok_np, ridx_np, 0).astype(np.int64)
-            for c, oname in zip(right_columns, out_names[len(columns):]):
-                if rvals_sorted[c].size == 0:  # empty right: all masked
-                    rv = np.ma.masked_all(len(safe), dtype=np.ma.getdata(rvals_sorted[c]).dtype)
-                else:
-                    rv = rvals_sorted[c][safe]
-                if how == "left":
-                    m = ~ok_np
-                    if isinstance(rv, np.ma.MaskedArray):
-                        rv = np.ma.MaskedArray(np.ma.getdata(rv),
-                                               mask=np.ma.getmaskarray(rv) | m)
-                    elif m.any():
-                        rv = np.ma.MaskedArray(rv, mask=m)
-                out[oname].append(rv)
-            if limit is not None and taken >= limit:
-                break
-        if limit is not None and taken >= limit:
-            break
+            vals, extra = _gather_columns(rows, columns, col_meta, idx, n, extra=(ridx, matched))
+            yield n, (vals, tuple(extra))
+            if left is not None and taken >= left:
+                return
+
+    states = shard._combine(part, lambda: _rank_files(lpaths, walk, limit, part))
+    out = {n: [] for n in out_names}
+    for _f, (vals, (ridx_np, ok_np)) in _merged_rows(states, len(lpaths), limit):
+        for c in columns:
+            out[c].append(vals[c])
+        # right columns: host gather by matched sorted-row index
+        safe = np.where(ok_np, ridx_np, 0).astype(np.int64)
+        for c, oname in zip(right_columns, out_names[len(columns):]):
+            if rvals_sorted[c].size == 0:  # empty right: all masked
+                rv = np.ma.masked_all(len(safe), dtype=np.ma.getdata(rvals_sorted[c]).dtype)
+            else:
+                rv = rvals_sorted[c][safe]
+            if how == "left":
+                m = ~ok_np
+                if isinstance(rv, np.ma.MaskedArray):
+                    rv = np.ma.MaskedArray(np.ma.getdata(rv),
+                                           mask=np.ma.getmaskarray(rv) | m)
+                elif m.any():
+                    rv = np.ma.MaskedArray(rv, mask=m)
+            out[oname].append(rv)
     return {n: _concat_parts(out[n]) for n in out_names}

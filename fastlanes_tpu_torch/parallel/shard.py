@@ -239,13 +239,13 @@ def global_max_bits(mesh, values, dtype, axis="blocks") -> torch.Tensor:
     return bits
 
 
-def all_gather_packed(mesh, local, dtype, axis="blocks") -> torch.Tensor:
-    """Every rank's local part (a sharded op's output), gathered in block
-    order on every rank. Parts may hold unequal block counts: the counts are
-    exchanged first, each part is padded to the largest, gathered as bytes
-    (every backend carries uint8) and trimmed."""
+def all_gather_packed(mesh, packed_sharded, dtype, axis="blocks") -> torch.Tensor:
+    """Every rank's local part `packed_sharded` (a sharded op's output),
+    gathered in block order on every rank. Parts may hold unequal block
+    counts: the counts are exchanged first, each part is padded to the
+    largest, gathered as bytes (every backend carries uint8) and trimmed."""
     group, n, _, device = _shard(mesh, axis)
-    part = eng.as_unsigned(local, dtype).to(device).contiguous()
+    part = eng.as_unsigned(packed_sharded, dtype).to(device).contiguous()
     if part.ndim != 2:
         raise ValueError(f"a local part is (blocks, cols), got {tuple(part.shape)}")
     counts = [torch.zeros(1, dtype=torch.int64, device=device) for _ in range(n)]

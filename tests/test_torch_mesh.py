@@ -1,12 +1,14 @@
-"""`mesh=` on the port's reads and aggregations, against the JAX package's same
-entries with `mesh=fastlanes_tpu.parallel.make_mesh(8)` and against the port
-without a mesh, at tolerance 0.
+"""`mesh=` on the port's reads, aggregations, select and join, against the JAX
+package's same entries with `mesh=fastlanes_tpu.parallel.make_mesh(8)` and
+against the port without a mesh, at tolerance 0.
 
 The port splits an entry's chunks over the ranks of the mesh (one process a
 device; parallel/shard.py): a read returns the rank's local part, and the
 parts in rank order, concatenated, must be the reference's read; an
-aggregation combines the ranks' exact partial states once, and every rank
-must return the reference's answer. Two worlds: one rank on an in-process
+aggregation combines the ranks' exact partial states once, a select or join
+the ranks' rows (or ORDER BY ... LIMIT candidates) once, and every rank
+must return the reference's answer. A table of 17 one-block chunks of tied
+keys has its lockstep window of chunks 8-15 cut by the two ranks' split. Two worlds: one rank on an in-process
 gloo store, and two ranks in two child processes over a `file://` store,
 spawned once for the module.
 
@@ -97,18 +99,77 @@ def table_columns(n: int) -> dict:
     return {name: col[:n] for name, col in BASE.items()}
 
 
+#: rows of the tie table: 17 chunks of one block, which two ranks split 9 / 8,
+#: so that rank 1's range starts inside the lockstep window of chunks 8-15
+TIE_ROWS = 17 * 1024
+
+
+def tie_columns() -> dict:
+    """Order keys with many ties (every key in {0, 1, 2}) at 64 and at 32 bits,
+    and the row number to see which of the tied rows came out."""
+    rng = np.random.default_rng(0x71E5)
+    return {"k64": rng.integers(0, 3, TIE_ROWS).astype(np.int64),
+            "k32": rng.integers(0, 3, TIE_ROWS).astype(np.int32),
+            "row": np.arange(TIE_ROWS, dtype=np.uint32)}
+
+
+def dim_columns() -> dict:
+    """The right sides of the joins: a unique u16 `key` over part of the
+    table's key domain (and the same keys as u32, which the left key's
+    dtype refuses), and a unique string `cur` over part of WORDS."""
+    key = (np.arange(24, dtype=np.uint16) * 7 % 30)[::-1].copy()
+    rng = np.random.default_rng(0xD1)
+    dim = {"key": key, "rate": np.round(rng.normal(1.0, 0.1, key.size), 4),
+           "label": np.array([f"k{int(k):02d}" for k in key])}
+    return {"dim": dim, "dim_u32": dict(dim, key=key.astype(np.uint32)),
+            "str_dim": {"cur": np.array(["GBP", "EUR", "zł", "XXX"]),
+                        "sym": np.array(["£", "€", "z", "?"])},
+            "str_key_dim": {"key": np.array(["1", "2"]), "sym": np.array(["a", "b"])}}
+
+
+def strip_zone_maps(src: str, dst: str) -> None:
+    """A copy of table `src` whose header holds no zone-map stats, as a file
+    written before zone maps existed: ORDER BY ... LIMIT then walks every
+    window in order."""
+    import json
+    import struct
+
+    with open(src, "rb") as f:
+        magic = f.read(len(ttab.MAGIC))
+        (hlen,) = struct.unpack("<I", f.read(4))
+        header = json.loads(f.read(hlen))
+        payload = f.read()
+    for col in header["columns"].values():
+        for chunk in col["chunks"]:
+            chunk.pop("stats", None)
+    hdr = json.dumps(header).encode()
+    with open(dst, "wb") as f:
+        f.write(magic + struct.pack("<I", len(hdr)) + hdr + payload)
+
+
+def world_paths(root: str) -> dict:
+    """Where write_world puts every file."""
+    out = {n: {"n": n, "path": f"{root}/t{n}.flt",
+               "files": {c: f"{root}/t{n}_{c}.flt" for c in FILES}} for n in ROWS}
+    out["ties"] = f"{root}/ties.flt"
+    out["no_zone_maps"] = f"{root}/t{max(ROWS)}_no_zone_maps.flt"
+    out.update({name: f"{root}/{name}.flt" for name in dim_columns()})
+    return out
+
+
 def write_world(root: str) -> dict:
-    """Every table, and a plain FLT file of each of FILES per table."""
-    out = {}
+    """Every table, a plain FLT file of each of FILES per table, the tie
+    table, the largest table without zone maps and the joins' right sides."""
+    out = world_paths(root)
     for n in ROWS:
         cols = table_columns(n)
-        path = os.path.join(root, f"t{n}.flt")
-        ttab.write_table(path, cols, chunk_blocks=1)
-        files = {}
+        ttab.write_table(out[n]["path"], cols, chunk_blocks=1)
         for c in FILES:
-            files[c] = os.path.join(root, f"t{n}_{c}.flt")
-            tfio.write_file(files[c], cols[c], chunk_blocks=1)
-        out[n] = {"n": n, "path": path, "files": files}
+            tfio.write_file(out[n]["files"][c], cols[c], chunk_blocks=1)
+    ttab.write_table(out["ties"], tie_columns(), chunk_blocks=1)
+    strip_zone_maps(out[max(ROWS)]["path"], out["no_zone_maps"])
+    for name, cols in dim_columns().items():
+        ttab.write_table(out[name], cols)
     return out
 
 
@@ -119,7 +180,7 @@ def write_world(root: str) -> dict:
 ENTRIES = ("read_blocks_device", "read_file_device", "read_files_device",
            "iter_files_device", "read_column_device", "scan_column", "scan_table",
            "count_where", "scan_where", "scan_where_multi", "group_stats", "value_counts",
-           "top_k", "quantile", "median")
+           "top_k", "quantile", "median", "select", "join")
 READS = ENTRIES[:5]
 PORT = types.SimpleNamespace(**{e: getattr(tdev if e in READS else tan, e) for e in ENTRIES})
 
@@ -225,8 +286,89 @@ def calls(entry: str, t: dict, world: dict) -> list:
     elif entry == "median":
         for c in ("walk_i32", "sp_f64", "null_str", "flag"):
             out.append((c, lambda a, c=c, **kw: a.median(p, c, **kw)))
+    elif entry == "select":
+        out += select_calls(p, big, other, world)
+    elif entry == "join":
+        out += join_calls(p, big, other, world)
     else:
         raise KeyError(entry)
+    return out
+
+
+def select_calls(p: str, big: bool, other: str, world: dict) -> list:
+    """select in every form: WHERE, LIMIT (inside rank 0's chunks and past
+    them), ORDER BY, ORDER BY ... LIMIT with zone maps and without, the
+    two-file dataset, the tie table, and a refusal. The ORDER BY ... LIMIT
+    keys hold no null and never their type's worst value, and a WHERE leaves
+    more rows than the limit: there the reference can return a row that
+    fails the WHERE (ROADMAP.md, Queue 3, `select`)."""
+    two = [("key", "lt", 20), ("cur", "ne", "EUR")]
+    out = [
+        ("where", lambda a, **kw: a.select(
+            p, ["walk_i32", "cur", "null_f32", "day", "flag"], two, **kw)),
+        ("limit past rank 0", lambda a, **kw: a.select(p, ["ffor_u32", "null_str"],
+                                                       limit=2050, **kw)),
+        ("where limit", lambda a, **kw: a.select(p, ["ffor_u32", "null_str"],
+                                                 [("key", "ge", 5)], limit=1500, **kw)),
+        ("limit 0", lambda a, **kw: a.select(p, ["bits_u8"], limit=0, **kw)),
+        ("order desc", lambda a, **kw: a.select(p, ["walk_i32", "bits_u8"],
+                                                order_by="walk_i32", desc=True, **kw)),
+        ("order asc limit", lambda a, **kw: a.select(
+            p, ["alp_f64", "cur", "null_i32"], [("key", "lt", 25)], order_by="alp_f64",
+            limit=7, **kw)),
+        ("order desc limit u64", lambda a, **kw: a.select(
+            p, ["delta_u64", "null_str"], order_by="delta_u64", desc=True, limit=5, **kw)),
+        ("unknown op", lambda a, **kw: a.select(p, ["key"], [("key", "zz", 1)], **kw)),
+    ]
+    if big:
+        nz, ties = world["no_zone_maps"], world["ties"]
+        out += [
+            ("order desc limit, no zone maps", lambda a, **kw: a.select(
+                nz, ["walk_i32", "cur"], order_by="walk_i32", desc=True, limit=6, **kw)),
+            ("dataset where limit", lambda a, **kw: a.select(
+                [p, other], ["walk_i32", "cur"], [("key", "lt", 10)], limit=700, **kw)),
+            ("dataset order", lambda a, **kw: a.select(
+                [p, other], ["walk_i32", "null_str"], order_by="walk_i32", **kw)),
+            ("dataset order desc limit", lambda a, **kw: a.select(
+                [p, other], ["alp_f64", "cur"], order_by="alp_f64", desc=True, limit=4, **kw)),
+            ("dataset, a file that is no table", lambda a, **kw: a.select(
+                [p, world[max(ROWS)]["files"]["walk_i32"]], ["walk_i32"], limit=3000, **kw)),
+            ("ties i64 desc", lambda a, **kw: a.select(
+                ties, ["row", "k32"], order_by="k64", desc=True, limit=3000, **kw)),
+            ("ties i32 desc", lambda a, **kw: a.select(
+                ties, ["row", "k64"], order_by="k32", desc=True, limit=3000, **kw)),
+            ("ties i64 asc", lambda a, **kw: a.select(
+                ties, ["row", "k32"], order_by="k64", limit=3000, **kw)),
+        ]
+    return out
+
+
+def join_calls(p: str, big: bool, other: str, world: dict) -> list:
+    """join inner and left on an int and a string key, with preds and LIMIT
+    (inside rank 0's chunks and past them), the two-file dataset, and the
+    refusals of the walk: a key dtype that differs (raised at the first
+    window, so on the one-row table by rank 0 alone) and a string right key
+    against an int left key (raised at the start of the file's walk)."""
+    dim, dim32, sdim = world["dim"], world["dim_u32"], world["str_dim"]
+    out = [
+        ("u16 inner", lambda a, **kw: a.join(
+            p, dim, on="key", columns=["key", "walk_i32", "null_str"], **kw)),
+        ("u16 left where limit", lambda a, **kw: a.join(
+            p, dim, on="key", columns=["ffor_u32"], right_columns=["label"],
+            preds=[("flag", "eq", True)], how="left", limit=300, **kw)),
+        ("str inner where", lambda a, **kw: a.join(
+            p, sdim, on="cur", columns=["cur", "sp_f32"], preds=[("key", "ge", 3)], **kw)),
+        ("str left limit past rank 0", lambda a, **kw: a.join(
+            p, sdim, on="cur", columns=["null_i32"], how="left", limit=2050, **kw)),
+        ("string right key, int left key", lambda a, **kw: a.join(
+            p, world["str_key_dim"], on="key", columns=["walk_i32"], **kw)),
+    ]
+    if big:
+        out.append(("dataset left limit", lambda a, **kw: a.join(
+            [p, other], dim, on="key", columns=["walk_i32", "cur"], how="left", limit=2060,
+            **kw)))
+    else:  # the reference compiles the refusal's walk at each shape
+        out.append(("key dtypes differ", lambda a, **kw: a.join(p, dim32, on="key", **kw)))
     return out
 
 
@@ -292,12 +434,27 @@ import torch.distributed as dist
 rank, store, root = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 parallel.setup_distributed("file://" + store, 2, rank, device="cpu")
 mesh = parallel.make_mesh(device="cpu")
-world = {n: {"n": n, "path": f"{root}/t{n}.flt",
-             "files": {c: f"{root}/t{n}_{c}.flt" for c in t.FILES}} for n in t.ROWS}
-out = {(e, n, label): t.port_run(call, mesh=mesh)
-       for n in t.ROWS for e in t.ENTRIES for label, call in t.calls(e, world[n], world)}
+world = t.world_paths(root)
+gathers = 0
+real_gather = dist.all_gather_object
+
+
+def counted_gather(*args, **kwargs):  # the collectives a call makes
+    global gathers
+    gathers += 1
+    return real_gather(*args, **kwargs)
+
+
+dist.all_gather_object = counted_gather
+out, collectives = {}, {}
+for n in t.ROWS:
+    for e in t.ENTRIES:
+        for label, call in t.calls(e, world[n], world):
+            gathers = 0
+            out[e, n, label] = t.port_run(call, mesh=mesh)
+            collectives[e, n, label] = gathers
 with open(f"{root}/rank{rank}.pkl", "wb") as f:
-    pickle.dump(out, f)
+    pickle.dump((out, collectives), f)
 dist.destroy_process_group()
 """
 
@@ -360,11 +517,13 @@ def answers(tmp_path_factory):
         for p in procs:
             p.kill()
     assert [p.returncode for p in procs] == [0, 0], [err[-3000:] for _, err in outs]
-    ranks = []
+    ranks, collectives = [], []
     for rank in range(2):
         with open(root / f"rank{rank}.pkl", "rb") as f:
-            ranks.append(pickle.load(f))
-    return {"world": world, "reference": ref, "ranks": ranks}
+            got, counts = pickle.load(f)
+        ranks.append(got)
+        collectives.append(counts)
+    return {"world": world, "reference": ref, "ranks": ranks, "collectives": collectives}
 
 
 @pytest.fixture(scope="module")
@@ -435,3 +594,64 @@ def test_each_rank_reads_and_decodes_only_its_chunks(answers, n):
         assert sum(walked) == rows and (walked != []) == bool(want)
         seen += walked
     assert sum(seen) == n
+
+
+def test_ties_of_a_64_bit_key_across_a_cut_window(answers):
+    """ORDER BY k64 DESC LIMIT 3000 over 17 chunks of keys in {0, 1, 2}: the
+    3000 rows are all tied, and the reference takes them window by window,
+    highest row first inside a window. Two ranks split the chunks 9 / 8, so
+    rank 1 starts at chunk 9, inside the window of chunks 8-15. This fails
+    when a rank's windows start at its range (rank 1's first window would
+    run to chunk 16): its windows must lie on the file's grid, and the merge
+    must order candidates by their file-wide window and row."""
+    from test_torch_parity import first_diff
+
+    label = "ties i64 desc"
+    want = answers["reference"]["select", max(ROWS), label]
+    assert not isinstance(want, Raised) and len(want["row"]) == 3000
+    parity_form = _parity_form()
+    for rank, got in enumerate(answers["ranks"]):
+        d = first_diff(parity_form(got["select", max(ROWS), label]), want, False)
+        assert not d, f"rank {rank}{d}"
+
+
+@pytest.mark.parametrize("entry", ("select", "join"))
+def test_a_row_query_makes_one_collective_on_every_rank(answers, mesh1, entry):
+    """Every select and join call, the two-file ones included, meets the
+    other rank exactly once (select's refusal of an unknown operator, raised
+    on every rank from the header before the walk, not at all): counted on both ranks of two, and at one
+    rank here."""
+    real = dist.all_gather_object
+    counts = []
+
+    def counted(*args, **kwargs):
+        counts.append(1)
+        return real(*args, **kwargs)
+
+    for n in ROWS:
+        for label, call in calls(entry, answers["world"][n], answers["world"]):
+            key = (entry, n, label)
+            on_ranks = [c[key] for c in answers["collectives"]]
+            before = answers["reference"][key]
+            want = 0 if label == "unknown op" else 1
+            assert on_ranks == [want, want], (key, on_ranks, before)
+            counts.clear()
+            dist.all_gather_object = counted
+            try:
+                port_run(call, mesh=mesh1)
+            finally:
+                dist.all_gather_object = real
+            assert len(counts) == want, (key, len(counts))
+
+
+def test_a_rank_without_chunks_meets_the_one_that_raised(answers):
+    """The one-row table has one chunk: rank 0 walks it and meets the join's
+    key-dtype refusal at its first window; rank 1 holds no chunk and raises
+    nothing of its own. Neither hangs: both raise the refusal, as the
+    reference and the port without a mesh do."""
+    key = ("join", 1, "key dtypes differ")
+    want = answers["reference"][key]
+    assert want.type is ValueError
+    assert [r[key].type if isinstance(r[key], Raised) else r[key]
+            for r in answers["ranks"]] == [ValueError, ValueError]
+    assert [c[key] for c in answers["collectives"]] == [1, 1]

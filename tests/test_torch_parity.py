@@ -30,9 +30,9 @@ index. Each (entry, table) pair is its own case, and computes each of its
 reference answers once.
 
 The mesh axis: every entry that takes `mesh=` (all but distinct, which runs
-on the host, and select and join) answers the same calls again on a
-one-rank mesh (an in-process gloo group), held to the same reference
-answers, which the first pass keeps."""
+on the host) answers the same calls again on a one-rank mesh (an in-process
+gloo group), held to the same reference answers, which the first pass
+keeps."""
 
 import functools
 import math
@@ -195,7 +195,7 @@ PORT = types.SimpleNamespace(**{  # distinct runs on the host: no device argumen
     e: port if e == "distinct" else functools.partial(port, device="cpu")
     for e, (_, port) in ENTRY_FUNCTIONS.items()})
 #: the entries that take a mesh
-MESH_ENTRIES = tuple(e for e in ENTRIES if e not in ("distinct", "select", "join"))
+MESH_ENTRIES = tuple(e for e in ENTRIES if e != "distinct")
 
 
 def port_on(mesh):
