@@ -77,6 +77,7 @@ from . import fio, fio_device, zonemaps
 from .core import layout
 from .ops import _engine as eng
 from .parallel import shard
+from .utils.trace import entry, span, spanned
 
 _ORDER_OPS = ("lt", "le", "gt", "ge", "eq", "ne")
 #: membership predicates take a LIST of probe values (the semi-join /
@@ -98,6 +99,7 @@ def _fetch(tensor: torch.Tensor) -> list:
     return _fetch_np(tensor).tolist()
 
 
+@spanned("fetch")
 def _fetch_np(tensor: torch.Tensor) -> np.ndarray:
     """An integer tensor -> a numpy array: ONE copy to the host."""
     global HOST_FETCHES
@@ -198,6 +200,7 @@ def _decoded_chunks(path: str, column: Optional[str], device,
         return n_values is None or end_values <= n_values
 
     with open(path, "rb") as f:
+        @spanned("read")
         def read_cov(idxs):
             cov = []
             for i in idxs:
@@ -305,6 +308,7 @@ def _zone_decisions_col(path, column, op, value):
     return zonemaps.decisions(chunks, kind, op, value), chunks, n_values
 
 
+@spanned("zonemap")
 def _zone_keep(path, preds, names=()):
     """Chunk keep flags for ANDed predicates [(col, op, value)]: False
     where some predicate's zone decision is 'none' (the chunk can satisfy
@@ -334,6 +338,7 @@ def _zone_keep(path, preds, names=()):
     return None if keep is None or all(keep) else keep
 
 
+@spanned("dict")
 def _str_dict_of(path: str, column: Optional[str]):
     """Sorted dictionary of a string table column, else None."""
     if column is None:
@@ -743,6 +748,7 @@ class _StatAcc:
             return
         self.feed_flat(_flatten_logical(blocks, cdtype, vtype), valid, pred)
 
+    @spanned("acc")
     def feed_flat(self, flat: _Flat, valid, pred=None):
         if valid == 0:
             return
@@ -870,6 +876,7 @@ def _scan_column_feed(column, device, part):
     return feed
 
 
+@entry
 def scan_column(path, column: Optional[str] = None, device=None,
                 mesh=None) -> dict:
     """Sum/min/max/count over a compressed column (one path or a list of
@@ -886,6 +893,7 @@ def scan_column(path, column: Optional[str] = None, device=None,
     return _acc_results(paths, column, accs, with_n_null=True)
 
 
+@entry
 def scan_table(path, columns=None, device=None, mesh=None) -> dict:
     """Single-pass stats over several (default: all) columns of an FLTTAB
     table file: the header parses once and every selected chunk is visited
@@ -921,6 +929,7 @@ def scan_table(path, columns=None, device=None, mesh=None) -> dict:
     return out
 
 
+@entry
 def count_where(path, op: str, value, column: Optional[str] = None,
                 device=None, mesh=None) -> int:
     """Filtered count: the predicate is evaluated on the decoded values on
@@ -970,6 +979,7 @@ def count_where(path, op: str, value, column: Optional[str] = None,
     return sum(shard._combine(part, local))
 
 
+@entry
 def scan_where(path, op: str, value, column: Optional[str] = None,
                where: Optional[str] = None, device=None,
                window: Optional[int] = None, mesh=None) -> dict:
@@ -1056,7 +1066,8 @@ def _lockstep_chunks(path: str, names, device, keep=None,
                                 part=part)
              for n in names}
     while True:
-        rows = {n: next(it, None) for n, it in iters.items()}
+        with span("window"):
+            rows = {n: next(it, None) for n, it in iters.items()}
         done = sum(r is None for r in rows.values())
         if done:
             if done != len(iters):
@@ -1095,6 +1106,7 @@ def _normalize_preds(path: str, preds):
     return out
 
 
+@spanned("mask")
 def _chunk_row_mask(rows, preds):
     """AND of every predicate's hit mask over one lockstep window (None
     without predicates); null predicate rows match nothing."""
@@ -1108,6 +1120,7 @@ def _chunk_row_mask(rows, preds):
     return mask
 
 
+@entry
 def scan_where_multi(path, preds, column: Optional[str] = None,
                      device=None, mesh=None) -> dict:
     """Filtered aggregation with several ANDed predicates, the WHERE clause
@@ -1203,6 +1216,7 @@ class _GroupAcc:
         self.rows = 0
         self.parts = []  # fetched (sums (k, n_cols), mins (k,), maxs (k,))
 
+    @spanned("acc")
     def feed(self, flat_k: _Flat, flat_v: _Flat, valid: int, mask):
         """One lockstep window: group numbers from `flat_k`, values from
         `flat_v`, the first `valid` rows, `mask` (None or a bool tensor)
@@ -1255,6 +1269,7 @@ class _GroupAcc:
         self.mn.scatter_reduce_(0, ext_slot, ext, "amin")
         self.mx.scatter_reduce_(0, ext_slot, ext, "amax")
 
+    @spanned("acc")
     def flush(self) -> None:
         """Fold the spread copies on the device and fetch the k groups (the
         trash slot stays behind) in ONE copy; reset the device state."""
@@ -1448,6 +1463,7 @@ def _group_walk(paths, key, value, k, raw_preds, device, part):
     return None if acc is None else acc.host_state()
 
 
+@entry
 def group_stats(path, key: str, value: str, max_groups: Optional[int] = None,
                 device=None, preds=(), mesh=None) -> dict:
     """GROUP BY pushdown over a compressed table file: per-group
@@ -1509,6 +1525,7 @@ def group_stats(path, key: str, value: str, max_groups: Optional[int] = None,
 _VALUE_COUNTS_CAP = 65536
 
 
+@entry
 def distinct(path, column: Optional[str] = None) -> np.ndarray:
     """Sorted distinct values of a compressed column, on the host: dict
     chunks read only their dictionaries and rle chunks only their run values
@@ -1579,6 +1596,7 @@ def _holds_a_value(chunks, n_values, nulls_meta) -> bool:
     return _n_rows(chunks, n_values) > n_null
 
 
+@entry
 def value_counts(path, column: Optional[str] = None,
                  max_values: int = _VALUE_COUNTS_CAP, device=None,
                  mesh=None) -> dict:
@@ -1713,6 +1731,7 @@ def _bound_int(key_tuple) -> int:
     return out
 
 
+@entry
 def top_k(path, column: Optional[str] = None, k: int = 10,
           largest: bool = True, device=None, mesh=None) -> list:
     """The k largest (or smallest) values of a compressed column,
@@ -1819,6 +1838,7 @@ def _top_k_values(path, column, k, largest, states) -> list:
     return out
 
 
+@entry
 def quantile(path, column: Optional[str] = None, q=0.5, device=None, mesh=None):
     """EXACT quantile of a compressed column (lower interpolation: the value
     at zero-based rank floor(q*(n-1)) of the sorted non-null values, numpy's
@@ -1901,6 +1921,7 @@ def quantile(path, column: Optional[str] = None, q=0.5, device=None, mesh=None):
     return out[0] if scalar else out
 
 
+@entry
 def median(path, column: Optional[str] = None, device=None, mesh=None):
     """Exact median (see quantile)."""
     return quantile(path, column=column, q=0.5, device=device, mesh=mesh)
@@ -1931,6 +1952,7 @@ _NP_OF_TORCH = {torch.uint8: np.uint8, torch.uint16: np.uint16, torch.uint32: np
                 torch.float64: np.float64, torch.bool: np.bool_}
 
 
+@spanned("fetch")
 def _rows_of(mask) -> torch.Tensor:
     """Device row indices where `mask` holds. `torch.nonzero` sizes its
     output on the host: one fetch (the count)."""
@@ -2025,6 +2047,7 @@ def _column_meta(path: str, header: dict, names) -> dict:
     return meta
 
 
+@entry
 def select(path, columns=None, preds=(), limit: Optional[int] = None, device=None,
            order_by: Optional[str] = None, desc: bool = False, mesh=None) -> dict:
     """Materialise the rows matching every predicate: projection and
@@ -2404,6 +2427,7 @@ def _join_match(keys, right_sorted):
     return i, right_sorted[i] == keys
 
 
+@entry
 def join(left_path, right_path, on: str, columns=None, right_columns=None, preds=(),
          how: str = "inner", limit: Optional[int] = None, device=None, mesh=None) -> dict:
     """Dimension join: enrich the (large, streamed) LEFT table with columns

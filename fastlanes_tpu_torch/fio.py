@@ -30,6 +30,7 @@ from . import native
 from . import transforms
 from . import zonemaps
 from .ref import numpy_ref as npref
+from .utils.trace import span, spanned
 
 MAGIC = b"FLTPU1"
 # v1: delta chunks used a shared all-zero base (no payload prefix).
@@ -142,12 +143,13 @@ def read_validity_range(path: str, nulls_meta: dict, base_off: int,
                         start: int, stop: int) -> np.ndarray:
     """Validity bits of blocks [start, stop) — touches only those 128-byte
     rows of the bitmap blob."""
-    with open(path, "rb") as f:
+    with span("read"), open(path, "rb") as f:
         f.seek(base_off + nulls_meta["offset"] + start * 128)
         raw = f.read((stop - start) * 128)
     return decode_validity(raw, stop - start)
 
 
+@spanned("header")
 def payload_base_of(path: str, magic: bytes) -> int:
     """Absolute offset of the payload area (after magic + header)."""
     with open(path, "rb") as f:
@@ -729,6 +731,7 @@ def write_file(path: str, values, dtype=None, codec: str = "auto",
     return header
 
 
+@spanned("header")
 def read_header(path: str) -> dict:
     with open(path, "rb") as f:
         if f.read(len(MAGIC)) != MAGIC:

@@ -36,6 +36,7 @@ from .kernels import cuda_codecs as ck
 from .ops import _engine as eng
 from .ops import ffor as ops_ffor
 from .parallel import shard
+from .utils import trace
 
 
 class NullableColumn:
@@ -76,11 +77,13 @@ def _host_tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+@trace.spanned("h2d")
 def _to_device(arr: np.ndarray, device) -> torch.Tensor:
     """Host buffer -> tensor on `device` (same dtype and bytes)."""
     return _host_tensor(arr).to(device)
 
 
+@trace.spanned("h2d")
 def _rows_to_device(parts, device) -> torch.Tensor:
     """The host arrays `parts`, stacked along axis 0, as ONE tensor on
     `device`: each part is copied into its rows of the device tensor, so a
@@ -261,6 +264,7 @@ def _rle_gather(pi, bv, counts, run_values, dtype, device):
     return _gather_flat(run_values, idx, offsets, dtype, device)
 
 
+@trace.spanned("decode")
 def _decode_chunks_grouped(covering, dtype, device, natural=False):
     """Decode a list of (meta, raw) chunks, batching consecutive runs with
     the same (codec, width) signature into one kernel launch. Returns
@@ -364,9 +368,10 @@ def _read_chunks_device(f, chunks, base_off: int, chunk_blocks: int, idxs,
     if not idxs:
         return _concat_parts([], dtype, device, vtype)
     covering = []
-    for ci in idxs:
-        f.seek(base_off + chunks[ci]["offset"])
-        covering.append((chunks[ci], f.read(chunks[ci]["nbytes"])))
+    with trace.span("read"):
+        for ci in idxs:
+            f.seek(base_off + chunks[ci]["offset"])
+            covering.append((chunks[ci], f.read(chunks[ci]["nbytes"])))
     parts = _decode_chunks_grouped(covering, dtype, device)
     blocks = _concat_parts(parts, dtype, device, vtype)
     at = idxs[0] * chunk_blocks
@@ -428,6 +433,7 @@ def _read_blocks(path: str, start: int, stop: Optional[int], device, part):
     return out, first
 
 
+@trace.entry
 def read_blocks_device(path: str, start: int = 0, stop: Optional[int] = None,
                        device=None, mesh=None):
     """Decode blocks [start, stop) of an FLT file on the accelerator.
@@ -443,6 +449,7 @@ def read_blocks_device(path: str, start: int = 0, stop: Optional[int] = None,
     return _read_blocks(path, start, stop, device, part)[0]
 
 
+@trace.entry
 def read_file_device(path: str, device=None, mesh=None):
     """Whole-file device decode; flat-written columns come back flat and
     trimmed to their exact original length (see fio.write_file). With
@@ -474,6 +481,7 @@ def _file_result(path, header, parts, device, first: int = 0, end=None):
     return result
 
 
+@trace.entry
 def read_files_device(paths, device=None, mesh=None) -> dict:
     """Whole-file device decode of MANY FLT files with CROSS-FILE batched
     launches: every chunk sharing a (dtype, codec, width[, alp recipe])
@@ -508,20 +516,21 @@ def read_files_device(paths, device=None, mesh=None) -> dict:
                 groups.setdefault((dtype, sig), []).append((path, ci, meta, raw))
 
     decoded = {}  # (path, ci) -> device part
-    for (dtype, sig), members in groups.items():
-        if len(members) == 1:
-            singles.append(members[0])
-            continue
-        merged = _decode_run_batched(sig, [(m, r) for _, _, m, r in members],
-                                     dtype, device)
-        off = 0
-        for path, ci, meta, _ in members:
-            n = meta["n_blocks"]
-            decoded[(path, ci)] = merged[off:off + n]
-            off += n
-    for path, ci, meta, raw in singles:
-        decoded[(path, ci)] = _decode_chunk_device(
-            meta, raw, meta["n_blocks"], headers[path]["dtype"], device)
+    with trace.span("decode"):
+        for (dtype, sig), members in groups.items():
+            if len(members) == 1:
+                singles.append(members[0])
+                continue
+            merged = _decode_run_batched(sig, [(m, r) for _, _, m, r in members],
+                                         dtype, device)
+            off = 0
+            for path, ci, meta, _ in members:
+                n = meta["n_blocks"]
+                decoded[(path, ci)] = merged[off:off + n]
+                off += n
+        for path, ci, meta, raw in singles:
+            decoded[(path, ci)] = _decode_chunk_device(
+                meta, raw, meta["n_blocks"], headers[path]["dtype"], device)
 
     return {path: _file_result(
         path, headers[path], [decoded[(path, ci)] for ci, _, _ in file_chunks[path]],
@@ -537,7 +546,7 @@ def _read_raw_file(path: str, part=None):
                                  header["n_blocks"], part)
     base = fio._payload_base(path)
     raws = []
-    with open(path, "rb") as f:
+    with trace.span("read"), open(path, "rb") as f:
         for ci in idxs:
             meta = header["chunks"][ci]
             f.seek(base + meta["offset"])
@@ -579,6 +588,7 @@ def iter_files_device(paths, device=None, prefetch: int = 2, mesh=None):
             yield path, _file_result(path, header, parts, device, *span)
 
 
+@trace.entry
 def read_column_device(path: str, name: str, start: int = 0,
                        stop: Optional[int] = None, device=None, mesh=None):
     """Decode one column of an FLTTAB table file on the accelerator: touches

@@ -28,6 +28,7 @@ import numpy as np
 
 from . import fio
 from .core import layout
+from .utils.trace import spanned
 
 MAGIC = b"FLTTAB1"
 _VERSION = 1
@@ -573,6 +574,7 @@ class TableWriter:
         return False
 
 
+@spanned("header")
 def read_table_header(path: str) -> dict:
     with open(path, "rb") as f:
         if f.read(len(MAGIC)) != MAGIC:

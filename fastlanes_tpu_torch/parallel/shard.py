@@ -52,6 +52,7 @@ from ..core import layout
 from ..kernels import cuda_codecs as ck
 from ..ops import _engine as eng
 from ..ops import ffor as ops_ffor
+from ..utils.trace import span
 
 _DECODE = {
     ("unpack", False): ck.unpack, ("unpack", True): ck.unpack_orig,
@@ -138,7 +139,8 @@ def _combine(part, local) -> list:
     except Exception as exc:  # noqa: BLE001  (re-raised on every rank below)
         mine, failed = (_portable(exc), None), exc
     got = [None] * part.n
-    dist.all_gather_object(got, mine, group=part.group)
+    with span("combine"):
+        dist.all_gather_object(got, mine, group=part.group)
     for r, (exc, _) in enumerate(got):
         if exc is not None:
             if r == part.r:

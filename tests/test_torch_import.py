@@ -39,7 +39,7 @@ def test_every_module_is_listed():
                  "fio_device", "convert", "ops.orig", "ops.single", "ops.dispatch",
                  "models.codecs", "fio_table", "analytics", "native", "parallel",
                  "parallel.mesh", "parallel.shard", "utils", "utils.serialization",
-                 "utils.testing", "utils.timing", "interop", "cli", "__main__"):
+                 "utils.testing", "utils.timing", "utils.trace", "interop", "cli", "__main__"):
         assert f"fastlanes_tpu_torch.{want}" in names
 
 
