@@ -110,23 +110,17 @@ def _fetch_np(tensor: torch.Tensor) -> np.ndarray:
 def _column_layout(path: str, column: Optional[str]):
     """Chunk metadata of a column (FLT file or FLTTAB table column):
     (chunks, cdtype, transform, vtype, n_values, base_off, nulls_meta)."""
-    with open(path, "rb") as f:
-        magic = f.read(8)
-    if magic.startswith(b"FLTTAB1"):
+    file = fio.header_of(path)
+    if file.table:
         from . import fio_table
 
         if column is None:
             raise ValueError("table file: pass column=<name>")
-        header = fio_table.read_table_header(path)
-        col = fio_table._col_meta(header, column)
-        return (col["chunks"], col["dtype"], col.get("transform"),
-                col.get("vtype"), col.get("n_values"),
-                fio.payload_base_of(path, fio_table.MAGIC),
-                col.get("nulls"))
-    header = fio.read_header(path)
-    return (header["chunks"], header["dtype"], header.get("transform"),
-            header.get("vtype"), header.get("n_values"),
-            fio._payload_base(path), header.get("nulls"))
+        col = fio_table._col_meta(file.header, column)
+    else:
+        col = file.header
+    return (col["chunks"], col["dtype"], col.get("transform"), col.get("vtype"),
+            col.get("n_values"), file.base, col.get("nulls"))
 
 
 def _paths(path):
@@ -340,22 +334,22 @@ def _zone_keep(path, preds, names=()):
 
 @spanned("dict")
 def _str_dict_of(path: str, column: Optional[str]):
-    """Sorted dictionary of a string table column, else None."""
+    """Sorted dictionary of a string table column, else None; loaded once
+    a call (fio.header_of)."""
     if column is None:
         return None
-    with open(path, "rb") as f:
-        magic = f.read(8)
-    if not magic.startswith(b"FLTTAB1"):
+    file = fio.header_of(path)
+    if not file.table:
         return None
     from . import fio_table
 
-    header = fio_table.read_table_header(path)
-    col = fio_table._col_meta(header, column)
+    col = fio_table._col_meta(file.header, column)
     if col.get("vtype") != "str":
         return None
-    with open(path, "rb") as f:
-        return fio_table._load_str_dict(
-            f, fio.payload_base_of(path, fio_table.MAGIC), col)
+    if column not in file.dicts:
+        with open(path, "rb") as f:
+            file.dicts[column] = fio_table._load_str_dict(f, file.base, col)
+    return file.dicts[column]
 
 
 def _str_pred_to_code(dictionary: np.ndarray, op: str, value):
@@ -905,7 +899,7 @@ def scan_table(path, columns=None, device=None, mesh=None) -> dict:
 
     device, part = shard._placement(device, mesh)
     paths = _paths(path)
-    header = fio_table.read_table_header(paths[0])
+    header = fio.header_of(paths[0], table=True).header
     names = list(header["columns"]) if columns is None else list(columns)
     cols = {name: fio_table._col_meta(header, name) for name in names}
     if len(paths) == 1:
@@ -2103,12 +2097,10 @@ def _select_plan(path, columns, preds, order_by) -> tuple:
     from its header: the projected columns (default: all), the predicates in
     the file's domain, every column the walk decodes, their _column_meta and
     the predicates' zone-map keep."""
-    from . import fio_table
-
-    with open(path, "rb") as f:
-        if not f.read(8).startswith(b"FLTTAB1"):
-            raise ValueError("select() takes an FLTTAB table file")
-    header = fio_table.read_table_header(path)
+    file = fio.header_of(path)
+    if not file.table:
+        raise ValueError("select() takes an FLTTAB table file")
+    header = file.header
     if columns is None:
         columns = list(header["columns"])
     preds = _normalize_preds(path, list(preds))
@@ -2216,10 +2208,8 @@ def _select_dataset(paths, columns, preds, limit, device, order_by, desc, part):
     dictionaries), then a column-wise merge; ORDER BY re-sorts the merged
     candidates on the host and trims to the limit. With a mesh `part`, each
     file splits over the ranks and the call combines once."""
-    from . import fio_table
-
     if columns is None:
-        columns = list(fio_table.read_table_header(paths[0])["columns"])
+        columns = list(fio.header_of(paths[0], table=True).header["columns"])
 
     def file_rows(names, lim) -> dict:
         states = shard._combine(part, lambda: _rank_files(paths, lambda p, left: _select_rows(
@@ -2455,7 +2445,7 @@ def join(left_path, right_path, on: str, columns=None, right_columns=None, preds
         raise ValueError(f"how must be 'inner' or 'left', got {how!r}")
     device, part = shard._placement(device, mesh)
     lpaths = _paths(left_path)
-    rheader = fio_table.read_table_header(right_path)
+    rheader = fio.header_of(right_path, table=True).header
     if right_columns is None:
         right_columns = [c for c in rheader["columns"] if c != on]
     rkeys = fio_table.read_column(right_path, on)
@@ -2463,7 +2453,7 @@ def join(left_path, right_path, on: str, columns=None, right_columns=None, preds
         raise ValueError(f"right key column {on!r} must not contain nulls")
     rvals = {c: fio_table.read_column(right_path, c) for c in right_columns}
 
-    lheader = fio_table.read_table_header(lpaths[0])
+    lheader = fio.header_of(lpaths[0], table=True).header
     if columns is None:
         columns = list(lheader["columns"])
     out_names = list(columns) + [(c if c not in columns else f"{c}_right")
@@ -2493,7 +2483,7 @@ def join(left_path, right_path, on: str, columns=None, right_columns=None, preds
         this rank's chunks of left file `p`, stopping after `left` rows."""
         preds_p = _normalize_preds(p, list(preds))
         names = list(dict.fromkeys([q[0] for q in preds_p] + list(columns) + [on]))
-        col_meta = _column_meta(p, fio_table.read_table_header(p), names)
+        col_meta = _column_meta(p, fio.header_of(p, table=True).header, names)
         if str_key:
             ld = _str_dict_of(p, on)
             if ld is None:

@@ -14,10 +14,18 @@ both write the same bytes for the same input.
 Layout:  magic FLTPU1 | u32 header_len | header JSON | chunk payloads
 Each chunk: `chunk_blocks` blocks encoded with one codec + width; Delta
 chunks carry their per-lane base vector as a payload prefix.
+
+Within one call of a public entry of the port (utils/trace.py `entry`) each
+file's header is read and parsed once: `header_of` serves the call's later
+lookups, of FLT files and FLT tables alike, from the call's header scope,
+which closes when the entry returns or raises. Outside an entry every
+lookup reads the file again.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import json
 import struct
 from typing import Optional
@@ -38,6 +46,12 @@ MAGIC = b"FLTPU1"
 #     (n_blocks * LANES words before the packed stream). Readers accept v1
 #     files only when no chunk depends on the changed base layout.
 _VERSION = 2
+
+#: header parses (read_header, fio_table.read_table_header), and the
+#: lookups that an open header scope served without one (plain integers;
+#: reset by assigning 0)
+HEADER_PARSES = 0
+HEADER_HITS = 0
 
 
 def _bits_needed_arr(arr: np.ndarray) -> int:
@@ -733,6 +747,8 @@ def write_file(path: str, values, dtype=None, codec: str = "auto",
 
 @spanned("header")
 def read_header(path: str) -> dict:
+    global HEADER_PARSES
+    HEADER_PARSES += 1
     with open(path, "rb") as f:
         if f.read(len(MAGIC)) != MAGIC:
             raise ValueError("not an FLT file")
@@ -755,6 +771,77 @@ def read_header(path: str) -> dict:
 
 def _payload_base(path: str) -> int:
     return payload_base_of(path, MAGIC)
+
+
+#: the open call's headers, path -> FileHeader; None outside an entry
+_CALL = contextvars.ContextVar("fastlanes_headers", default=None)
+
+
+@contextlib.contextmanager
+def header_scope():
+    """One call's header scope: inside it `header_of` reads each file once.
+    An entry called inside another shares its caller's scope; nothing
+    outlives the outermost one."""
+    if _CALL.get() is not None:
+        yield
+        return
+    token = _CALL.set({})
+    try:
+        yield
+    finally:
+        _CALL.reset(token)
+
+
+class FileHeader:
+    """An FLT file's or table's header as one call sees it: whether it is a
+    table and where its payload starts, from one read of its first bytes;
+    the parsed `header` on first use (read_header or
+    fio_table.read_table_header, whose errors it raises); the string
+    dictionaries loaded so far (`dicts`, column -> array)."""
+
+    __slots__ = ("path", "table", "base", "_header", "dicts")
+
+    def __init__(self, path):
+        from . import fio_table
+
+        with open(path, "rb") as f:
+            lead = f.read(len(fio_table.MAGIC) + 4)
+        self.path = path
+        self.table = lead.startswith(fio_table.MAGIC)
+        magic = fio_table.MAGIC if self.table else MAGIC
+        hlen = lead[len(magic):len(magic) + 4]
+        self.base = len(magic) + 4 + struct.unpack("<I", hlen)[0] \
+            if len(hlen) == 4 else None  # no header to parse: the parse raises
+        self._header = None
+        self.dicts = {}
+
+    @property
+    def header(self) -> dict:
+        if self._header is None:
+            from . import fio_table
+
+            parse = fio_table.read_table_header if self.table else read_header
+            self._header = parse(self.path)
+        return self._header
+
+
+def header_of(path, table: Optional[bool] = None) -> FileHeader:
+    """The FileHeader of `path`: in an open header scope the call's one
+    (a lookup after the first counts in HEADER_HITS), else a fresh one.
+    `table=True` / `False` asks for a table / an FLT column file and raises
+    the error of fio_table.read_table_header / read_header on another."""
+    global HEADER_HITS
+    call = _CALL.get()
+    got = None if call is None else call.get(path)
+    if got is None:
+        got = FileHeader(path)
+        if call is not None:
+            call[path] = got
+    else:
+        HEADER_HITS += 1
+    if table is not None and got.table != table:
+        raise ValueError("not an FLT table file" if table else "not an FLT file")
+    return got
 
 
 def read_blocks(path: str, start: int = 0, stop: Optional[int] = None) -> np.ndarray:

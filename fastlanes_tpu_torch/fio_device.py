@@ -414,13 +414,14 @@ def _wrap_column_nulls(result, path, base_off, nulls_meta, start, stop,
 def _read_blocks(path: str, start: int, stop: Optional[int], device, part):
     """read_blocks_device's work: (this rank's blocks, or the whole range
     without a part; the first block of them, for the flat trim)."""
-    header = fio.read_header(path)
+    file = fio.header_of(path, table=False)
+    header = file.header
     dtype = header["dtype"]
     n = header["n_blocks"]
     stop = n if stop is None else min(stop, n)
     if not 0 <= start <= stop:
         raise IndexError(f"bad block range [{start}, {stop})")
-    base_off = fio._payload_base(path)
+    base_off = file.base
     idxs, first, end = _covering(header["chunks"], header["chunk_blocks"], start, stop,
                                  part)
     with open(path, "rb") as f:
@@ -456,7 +457,7 @@ def read_file_device(path: str, device=None, mesh=None):
     `mesh`, this rank's local part (see read_blocks_device): its chunks'
     values, the last part cut at the column's length."""
     device, part = shard._placement(device, mesh)
-    header = fio.read_header(path)
+    header = fio.header_of(path, table=False).header
     blocks, first = _read_blocks(path, 0, None, device, part)
     nv = header.get("n_values")
     if isinstance(blocks, NullableColumn):
@@ -476,7 +477,7 @@ def _file_result(path, header, parts, device, first: int = 0, end=None):
     result = _trim_flat(blocks, header.get("n_values"), first)
     if "nulls" in header:
         result = _wrap_column_nulls(
-            result, path, fio._payload_base(path), header["nulls"],
+            result, path, fio.header_of(path).base, header["nulls"],
             first, end, _values_from(header.get("n_values"), first), device)
     return result
 
@@ -541,15 +542,15 @@ def _read_raw_file(path: str, part=None):
     """Host side of the pipeline: the header, the indices and raw bytes of
     the chunks read (this rank's share with a mesh `part`, else all) and
     the blocks [first, end) they hold."""
-    header = fio.read_header(path)
+    file = fio.header_of(path, table=False)
+    header = file.header
     idxs, first, end = _covering(header["chunks"], header["chunk_blocks"], 0,
                                  header["n_blocks"], part)
-    base = fio._payload_base(path)
     raws = []
     with trace.span("read"), open(path, "rb") as f:
         for ci in idxs:
             meta = header["chunks"][ci]
-            f.seek(base + meta["offset"])
+            f.seek(file.base + meta["offset"])
             raws.append(f.read(meta["nbytes"]))
     return header, idxs, raws, (first, end)
 
@@ -603,15 +604,15 @@ def read_column_device(path: str, name: str, start: int = 0,
     from . import fio_table
 
     device, part = shard._placement(device, mesh)
-    header = fio_table.read_table_header(path)
-    col = fio_table._col_meta(header, name)
+    table = fio.header_of(path, table=True)
+    col = fio_table._col_meta(table.header, name)
     dtype = col["dtype"]
     n = col["n_blocks"]
     full = start == 0 and stop is None
     stop = n if stop is None else min(stop, n)
     if not 0 <= start <= stop:
         raise IndexError(f"bad block range [{start}, {stop})")
-    base_off = fio.payload_base_of(path, fio_table.MAGIC)
+    base_off = table.base
     idxs, first, end = _covering(col["chunks"], col["chunk_blocks"], start, stop, part)
     with open(path, "rb") as f:
         blocks = _read_chunks_device(f, col["chunks"], base_off, col["chunk_blocks"],

@@ -576,6 +576,7 @@ class TableWriter:
 
 @spanned("header")
 def read_table_header(path: str) -> dict:
+    fio.HEADER_PARSES += 1
     with open(path, "rb") as f:
         if f.read(len(MAGIC)) != MAGIC:
             raise ValueError("not an FLT table file")
@@ -584,10 +585,6 @@ def read_table_header(path: str) -> dict:
     if header["version"] != _VERSION:
         raise ValueError(f"unsupported FLT table version {header['version']}")
     return header
-
-
-def _payload_base(path: str) -> int:
-    return fio.payload_base_of(path, MAGIC)
 
 
 def _read_column(f, col: dict, base_off: int, start: int,
@@ -640,17 +637,16 @@ def read_column(path: str, name: str, start: int = 0,
                 stop: Optional[int] = None) -> np.ndarray:
     """Decode blocks [start, stop) of one column — touches only its covering
     chunks. Full reads of flat-written columns are trimmed to exact length."""
-    header = read_table_header(path)
-    col = _col_meta(header, name)
+    table = fio.header_of(path, table=True)
+    col = _col_meta(table.header, name)
     with open(path, "rb") as f:
-        return _read_column(f, col, _payload_base(path), start, stop)
+        return _read_column(f, col, table.base, start, stop)
 
 
 def read_table(path: str, names=None) -> Dict[str, np.ndarray]:
     """Decode several (default: all) columns, parsing the header once."""
-    header = read_table_header(path)
-    names = list(header["columns"]) if names is None else list(names)
-    base_off = _payload_base(path)
+    table = fio.header_of(path, table=True)
+    names = list(table.header["columns"]) if names is None else list(names)
     with open(path, "rb") as f:
-        return {name: _read_column(f, _col_meta(header, name), base_off, 0, None)
+        return {name: _read_column(f, _col_meta(table.header, name), table.base, 0, None)
                 for name in names}

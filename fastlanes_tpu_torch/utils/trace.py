@@ -57,7 +57,17 @@ def spanned(name: str):
 
 
 def entry(fn):
-    """Decorate a public entry: its calls open the root span
-    `fl.<function name>` around the stages they run. The signature is
-    kept (functools.wraps)."""
-    return spanned(fn.__name__)(fn)
+    """Decorate a public entry: each call opens the root span
+    `fl.<function name>` around the stages it runs, and the call's header
+    scope (fio.header_scope: each file's header parsed once a call). The
+    signature is kept (functools.wraps)."""
+    from ..fio import header_scope  # here: fio imports this module
+
+    name = fn.__name__
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with span(name), header_scope():
+            return fn(*args, **kwargs)
+
+    return wrapped
