@@ -17,6 +17,10 @@ metric is a file of its own, found by its name:
                             that decides `correct`, and the control
   metrics/<metric>.py       a reader that takes one metric from a run's record
 
+A cell of more than one card runs one process a card (ranks.py): the
+command's process is rank 0 and starts the others; every call gets the
+program's `mesh=`.
+
 The harness (run.py) imports the program under test, `fastlanes_tpu_torch`,
 and nothing of the JAX package beside it.
 """

@@ -169,3 +169,11 @@ def in_memory(config_name: str, seed: int, overrides=None) -> Dataset:
     data = gen.generate(config, seed)
     files = {k: {"path": k, "rows": len(next(iter(cols.values())))} for k, cols in data.items()}
     return Dataset(config, seed, gen, "", files, data)
+
+
+def attach(config_name: str, seed: int, overrides, root: str, files: dict) -> Dataset:
+    """The files another process of the run wrote for a configuration (the
+    `files` that its `build` returned), with no generated column: enough for
+    the traffic, which names files and draws its own parameters."""
+    config, gen = load_config(config_name, overrides)
+    return Dataset(config, seed, gen, root, files, {})

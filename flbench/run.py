@@ -15,8 +15,13 @@ record: the end-to-end metrics with `--trace 0`, the per-layer metrics with
 `--trace 1` (the window then runs under torch.profiler). Every run also
 reports the state of its host (flbench/host.py) beside its metrics.
 
-Exits 2 without a result when CUDA or the cell's cards are missing, and 3
-when a module of JAX or of the JAX package was loaded.
+A cell of more than one card runs one rank a card (flbench/ranks.py): this
+process is rank 0, which builds the data, starts the other ranks, owns the
+clock and reports; every call gets the program's `mesh=`.
+
+Exits 2 without a result when CUDA or the cell's cards are missing, 3 when a
+module of JAX or of the JAX package was loaded (in any rank), and 4 when
+another rank failed.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import time
 import traceback
 from dataclasses import dataclass, field
 
-from . import host
+from . import host, ranks
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -66,6 +71,11 @@ class Record:
     peaks: dict = None
     #: the CPUs the calling thread was seen on in the window (flbench.host)
     cpus_seen: set = field(default_factory=set)
+    #: on a mesh, every rank's summary in rank order (ranks.summary)
+    ranks: list = field(default_factory=list)
+    #: the card's allocator peak over the run (the fullest card's on a mesh),
+    #: read before the reference runs; 0 without a card
+    memory_peak_bytes: int = 0
 
 
 def loaded_forbidden() -> list:
@@ -222,27 +232,29 @@ class _Clock:
         return self.events[0].elapsed_time(self.events[1]) / 1e3
 
 
-def _window(fn, calls, seconds, device, sample, values_of, record, spans=False):
-    """The closed loop: returns the calls issued."""
+def _window(fn, calls, seconds, device, sample, values_of, record, spans=False, group=None):
+    """The closed loop: returns the calls issued. On a mesh (`group`) every
+    rank runs it, and rank 0's clock says when it ends."""
     from torch.profiler import record_function
 
     from .trace import SPAN
 
+    extra = group.kwargs if group is not None else {}
     issued = []
     clock = _Clock(device)
     start = time.perf_counter()
     deadline = start + seconds
     last = start
-    while last < deadline:
+    while (last < deadline) if group is None else group.go(last < deadline):
         call = next(calls)
         clock.start()
         try:
             if spans:
                 with record_function(SPAN + call.label):
-                    answer = fn(**call.kwargs, device=device)
+                    answer = fn(**call.kwargs, **extra, device=device)
                     _sync(device)
             else:
-                answer = fn(**call.kwargs, device=device)
+                answer = fn(**call.kwargs, **extra, device=device)
                 _sync(device)
         except Exception:  # an answer that never comes: counted, and the loop goes on
             traceback.print_exc(file=sys.stderr)
@@ -262,13 +274,39 @@ def _window(fn, calls, seconds, device, sample, values_of, record, spans=False):
     return issued
 
 
-def run_cell(bench: dict, cell_name: str, seed: int, seconds: float, trace: bool,
-             device: str = "cuda", overrides=None, data_dir=None) -> dict:
-    """One run of one cell: the result line as a dict."""
-    import torch
+def warm(fn, spec, ds, seed, device, group=None) -> None:
+    """Every call shape of the traffic once (one query of the warm-up
+    stream); on a mesh on every rank, then a barrier."""
+    from . import traffic
 
+    extra = group.kwargs if group is not None else {}
+    for call in traffic.Traffic(spec, ds, seed, stream=3).query():
+        fn(**call.kwargs, **extra, device=device)
+        _sync(device)
+    if group is not None:
+        group.barrier()
+
+
+def measure(fn, calls, seconds, device, sample, values_of, record, trace, group=None):
+    """The window, under torch.profiler where traced: (the calls issued, the
+    profiler or None)."""
+    if not trace:
+        return _window(fn, calls, seconds, device, sample, values_of, record,
+                       group=group), None
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.startswith("cuda")
+                                     else [])
+    with profile(activities=acts) as prof:
+        issued = _window(fn, calls, seconds, device, sample, values_of, record, spans=True,
+                         group=group)
+    return issued, prof
+
+
+def run_cell(bench: dict, cell_name: str, seed: int, seconds: float, trace: bool,
+             device: str = "cuda", overrides=None, data_dir=None, child_argv=None) -> dict:
+    """One run of one cell: the result line as a dict. A cell of n > 1 chips
+    runs here as rank 0 of n (`child_argv`: ranks.start)."""
     from . import dataset, traffic
-    from .trace import breakdown, collect
 
     t0 = time.perf_counter()
     cell = next(w for w in bench["workloads"] if w["name"] == cell_name)
@@ -278,9 +316,22 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float, trace: bool
     fn = _program_entry(spec["entry"])
     entry = spec["entry"].rsplit(".", 1)[1]
     emod, rmod = _module("entries", entry), _module("reference", entry)
-    for call in traffic.Traffic(spec, ds, seed, stream=3).query():  # warm every call shape
-        fn(**call.kwargs, device=device)
-        _sync(device)
+    group = ranks.start(cell, seed, seconds, trace, device, overrides, ds, child_argv) \
+        if cell["chips"] > 1 else None
+    with ranks.guarded(group):
+        return _run(bench, cell, seed, seconds, trace, device, ds, spec, fn, emod, rmod, group,
+                    t0, t_data)
+
+
+def _run(bench, cell, seed, seconds, trace, device, ds, spec, fn, emod, rmod, group, t0,
+         t_data) -> dict:
+    import torch
+
+    from . import traffic
+    from .trace import breakdown, collect
+
+    cell_name = cell["name"]
+    warm(fn, spec, ds, seed, device, group)
     cuda = device.startswith("cuda")
     record = Record(setup_s=time.perf_counter() - t0)
     steps = ", ".join(f"{k} {v:.2f} s" for k, v in ds.seconds.items())
@@ -296,13 +347,7 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float, trace: bool
     values_of = lambda call: emod.values(ds, call.kwargs)  # noqa: E731
     host_before = host.describe(ds.paths())
     before, usage = _counters(), resource.getrusage(resource.RUSAGE_SELF)
-    if trace:
-        from torch.profiler import ProfilerActivity, profile
-        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-        with profile(activities=acts) as prof:
-            issued = _window(fn, calls, seconds, device, sample, values_of, record, spans=True)
-    else:
-        issued = _window(fn, calls, seconds, device, sample, values_of, record)
+    issued, prof = measure(fn, calls, seconds, device, sample, values_of, record, trace, group)
     after, used = _counters(), resource.getrusage(resource.RUSAGE_SELF)
     print("window: %d calls in %.3f s; host cpu user %.2f s, system %.2f s; %d minor faults; "
           "%d / %d context switches (voluntary / not)" % (
@@ -328,6 +373,7 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float, trace: bool
                   "calibrate_s": host.calibrate()}
     print("host: " + json.dumps(host_state), file=sys.stderr)
     peak = torch.cuda.max_memory_allocated(0) if cuda else 0
+    record.memory_peak_bytes = int(peak)
 
     out_device = {"platform": "gpu" if cuda else "cpu",
                   "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
@@ -337,8 +383,9 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float, trace: bool
         t_trace = time.perf_counter()
         record.trace = collect(prof)
         del prof
+        share = {} if group is None else {"part": (0, group.n)}  # rank 0's chunks
         for call in issued:
-            for k, v in emod.work_of(ds, call.kwargs).items():
+            for k, v in emod.work_of(ds, call.kwargs, **share).items():
                 record.work[k] = record.work.get(k, 0) + v
         lo, hi = record.trace.window
         out_device.update(busy_s=record.trace.busy_s(), window_s=hi - lo)
@@ -347,6 +394,16 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float, trace: bool
               f"operators, read in {time.perf_counter() - t_trace:.2f} s", file=sys.stderr)
     if cuda:
         out_device["power_limit_w"] = _power_limit()
+    if group is not None:
+        record.ranks = group.gather(ranks.summary(record, issued, record.trace, peak,
+                                                  loaded_forbidden()))
+        group.close()
+        by_rank = [s["memory_peak_bytes"] for s in record.ranks]
+        out_device.update(memory_peak_bytes=max(by_rank), memory_peak_bytes_by_rank=by_rank)
+        record.memory_peak_bytes = max(by_rank)
+        if trace:  # averaged over the cards
+            out_device["busy_s"] = statistics.fmean(s["busy_s"] for s in record.ranks)
+        result["ranks"] = [ranks.report(s) for s in record.ranks]
 
     # the program's state freed; the sampled answers to the host; the reference
     kept = [(i, call, host_form(answer)) for i, call, answer in sample.kept]
@@ -360,7 +417,13 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float, trace: bool
     checks = {"mismatched_values": {"value": mismatched, "max": 0},
               "failed_calls": {"value": record.failed, "max": 0},
               "answers_compared": {"value": len(kept), "min": 1}}
-    correct = (mismatched == 0 and record.failed == 0 and len(kept) >= 1)
+    if group is not None:  # every rank issued rank 0's calls, with rank 0's outcomes
+        checks["ranks_differing"] = {"value": sum(
+            (s["digest"], s["calls"], s["failed"])
+            != (record.ranks[0]["digest"], record.calls, record.failed)
+            for s in record.ranks), "max": 0}
+    correct = (mismatched == 0 and record.failed == 0 and len(kept) >= 1
+               and all(c["value"] <= c["max"] for c in checks.values() if "max" in c))
 
     wanted = bench["per_layer"] if trace else bench["end_to_end"]
     metrics = {}
@@ -401,7 +464,7 @@ def main(argv=None) -> int:
         return 2
     _program_entry("fio.read_header")  # the program, from this checkout, before any set-up
     result = run_cell(bench, args.workload, args.seed, args.seconds, bool(args.trace))
-    bad = loaded_forbidden()
+    bad = sorted(set(loaded_forbidden()).union(*(r["forbidden"] for r in result.get("ranks", ()))))
     if bad:
         print(f"modules of {bad} were loaded; the benchmark measures {PROGRAM} alone",
               file=sys.stderr)

@@ -67,6 +67,16 @@ def self_ms_per_call(record, keep) -> float:
     return total / record.calls * 1e3
 
 
+def self_ms_by_name(trace) -> dict:
+    """Summed self time in milliseconds of the window's `fl.` spans, by name
+    without the prefix."""
+    spans = in_window(trace)
+    out = {}
+    for (n, _a, _b), t in zip(spans, self_times(spans)):
+        out[n] = out.get(n, 0.0) + t * 1e3
+    return out
+
+
 def count_per_call(record, name: str) -> float:
     """Spans `fl.<name>` in the window a call; None as `_spans`."""
     spans = _spans(record)

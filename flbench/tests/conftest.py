@@ -20,6 +20,10 @@ SMALL = {
                           "text_pool_bytes": 1 << 16,
                           "file": {"writer": "fio_table.write_table", "codec": "auto",
                                    "chunk_blocks": 1}},
+    "tpch-lineitem-sf4": {"orders": 3000, "parts": 20000, "suppliers": 1000,
+                          "text_pool_bytes": 1 << 16,
+                          "file": {"writer": "fio_table.write_table", "codec": "auto",
+                                   "chunk_blocks": 1}},
 }
 
 

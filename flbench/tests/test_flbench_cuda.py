@@ -26,10 +26,16 @@ def _run(cell: str, trace: int) -> dict:
 @pytest.mark.cuda
 @pytest.mark.parametrize("cell", [w["name"] for w in load_benchmark()["workloads"]])
 def test_every_cell_runs_correct_on_the_card(cell, needs_cuda):
+    import torch
+
     bench = load_benchmark()
+    chips = next(w["chips"] for w in bench["workloads"] if w["name"] == cell)
+    if torch.cuda.device_count() < chips:
+        pytest.skip(f"{cell} needs {chips} CUDA devices")
     for trace, kind in ((0, "end_to_end"), (1, "per_layer")):
         r = _run(cell, trace)
         assert r["correct"] and r["failed"] == 0 and r["device"]["platform"] == "gpu"
+        assert r["device"]["count"] == chips
         want = {m["name"] for m in bench[kind] if cell in m.get("workloads", [cell])}
         assert set(r["metrics"]) == want
         if trace:

@@ -1,7 +1,8 @@
 """A whole run at a small size on the CPU (the harness's look for a card
 skipped): `correct` is true as the program stands, and false with each fault
-that a cell can have planted in the timed path. One chip and no collective
-in these cells, so the exchange between chips has no fault to plant."""
+that a cell can have planted in the timed path. The cells of one card here:
+no collective, so the exchange between chips has no fault to plant (the
+cells of several cards: test_flbench_ranks.py)."""
 
 import math
 
@@ -12,7 +13,7 @@ from fastlanes_tpu_torch import analytics
 from flbench import run
 
 BENCH = run.load_benchmark()
-CONFIG = {w["name"]: w["config"] for w in BENCH["workloads"]}
+CONFIG = {w["name"]: w["config"] for w in BENCH["workloads"] if w["chips"] == 1}
 ENTRY = {"lineitem-q1": (analytics, "group_stats"),
          "lineitem-q6": (analytics, "scan_where_multi")}
 
@@ -62,7 +63,10 @@ def test_correct_as_the_program_stands(cell, tmp_path):
     assert r["correct"] and r["attempted"] >= 1 and r["failed"] == 0
     assert r["checks"]["mismatched_values"]["value"] == 0
     assert list(r)[-1] == "checks"
-    assert set(r["metrics"]) == {"values_per_s", "setup_s"}
+    # every end-to-end metric of the cell but the card's memory: none on the CPU
+    want = {m["name"] for m in BENCH["end_to_end"] if cell in m.get("workloads", [cell])}
+    assert set(r["metrics"]) == want - {"memory_peak_mb"}
+    assert "setup_s" in r["metrics"]
 
 
 @pytest.mark.parametrize("fault", ["unchanged", "half", "altered"])
@@ -98,8 +102,12 @@ def test_a_traced_run_reports_its_counters(cell, tmp_path):
     r = run.run_cell(BENCH, cell, 11, 0.5, True, device="cpu",
                      overrides=SMALL[CONFIG[cell]], data_dir=str(tmp_path))
     assert r["correct"]
-    # no device metric from a CPU run
-    assert set(r["metrics"]) == {"launches_per_call", "host_fetches_per_call"}
+    # every per-layer metric of the cell but those of the device's trace: the
+    # program's counters and spans
+    listed = [m for m in BENCH["per_layer"] if cell in m["workloads"]]
+    assert set(r["metrics"]) == {m["name"] for m in listed if m["source"] != "device_trace"}
+    reads = next(k for k in r["metrics"] if k.split(".")[0] == "header_reads_per_call")
+    assert r["metrics"][reads]["value"] > 0
     assert r["device"]["busy_s"] == 0 and r["device"]["window_s"] > 0
     assert set(r["breakdown"]) == {"device_ops", "idle_gaps"}
 

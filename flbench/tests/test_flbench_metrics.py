@@ -2,7 +2,7 @@
 
 import pytest
 
-from flbench.run import Record, _module
+from flbench.run import Record, _module, load_benchmark
 from flbench.trace import Trace, breakdown, short
 
 H100 = {"hbm_bytes_per_s": 3.35e12}
@@ -24,7 +24,7 @@ def fake() -> Record:
     return Record(setup_s=3.5, window_s=2.0, latencies_s=[0.1, 0.2, 0.3, 0.4], values=8_000_000,
                   calls=4, counters={"launches": 10, "host_fetches": 6},
                   work={"payload_bytes": 3.35e12 * 0.01},
-                  trace=t, peaks=H100)
+                  trace=t, peaks=H100, memory_peak_bytes=723_656_704)
 
 
 @pytest.mark.parametrize("name,want", [
@@ -35,10 +35,24 @@ def fake() -> Record:
     ("h2d_ms_per_call", 50.0),                     # 0.2 s of HtoD over 4 calls
     ("query_kernels_roofline", 6.25),              # 0.01 s bound / 0.16 s of kernels
     ("device_idle_share", 65.0),                   # busy 0.15 + 0.15 + 0.05 of 1.0 s
+    ("memory_peak_mb", 723.656704),
 ])
 def test_reader(name, want):
     got = _module("metrics", name).read(fake())
     assert got == pytest.approx(want, rel=1e-9)
+
+
+@pytest.mark.parametrize("name", [m["name"] for m in load_benchmark()["per_layer"]
+                                  if m["name"].endswith(".q6")])
+def test_a_cells_copy_reads_what_its_metric_reads(name):
+    base = name.rsplit(".", 1)[0]
+    assert _module("metrics", name).read(fake()) == _module("metrics", base).read(fake())
+
+
+def test_no_card_memory_reads_nothing():
+    r = fake()
+    r.memory_peak_bytes = 0
+    assert _module("metrics", "memory_peak_mb").read(r) is None
 
 
 @pytest.mark.parametrize("name", ["h2d_ms_per_call", "query_kernels_roofline",

@@ -75,3 +75,23 @@ def test_a_reader_with_nothing_to_read_returns_nothing(name):
 def test_breakdown_names_a_gap_by_the_stage_around_it():
     gaps = breakdown(fake().trace)["idle_gaps"]
     assert gaps[0][0] == "group_stats x | fl.read" and gaps[0][1] == pytest.approx(0.16)
+
+
+def test_combine_reads_the_exchange_and_nothing_without_one():
+    read = _module("metrics", "combine_ms_per_call").read
+    r = fake()
+    assert read(r) is None  # no call combined
+    r.trace.ops += [("fl.combine", 10.86, 10.88), ("fl.combine", 11.6, 11.65)]
+    assert read(r) == pytest.approx(35.0)
+
+
+def test_rank_skew_is_the_largest_ranks_host_time_over_the_mean():
+    read = _module("metrics", "rank_skew").read
+    r = fake()
+    assert read(r) is None  # one rank
+    r.ranks = [{"calls": 2, "self_ms": {"read": 30.0, "combine": 50.0}},
+               {"calls": 2, "self_ms": {"read": 20.0, "h2d": 10.0, "combine": 1.0}},
+               {"calls": 2, "self_ms": {"read": 10.0, "combine": 90.0}}]
+    assert read(r) == pytest.approx(30.0 / (70.0 / 3))  # the exchange left out
+    r.ranks[2]["self_ms"] = None  # a rank without a trace
+    assert read(r) is None

@@ -1,7 +1,9 @@
 """The work a call must do, counted by the benchmark from the data and the
 call, never from the program: the packed payload a table query must read,
 with the chunks that zone maps rule out left out (the 'none' half of the
-zone-map rule, frozen from the program's `zonemaps`)."""
+zone-map rule, frozen from the program's `zonemaps`), and on a mesh of n
+ranks only the chunks of one rank (the split by chunk, frozen from the
+program's `parallel/shard`)."""
 
 from __future__ import annotations
 
@@ -49,6 +51,17 @@ def chunk_ranges(values: np.ndarray, chunk_rows: int) -> list:
     return out
 
 
+def rank_chunks(n_chunks: int, part=None) -> tuple:
+    """Chunks [lo, hi) of rank r of n (`part` = (r, n)) of a column of
+    `n_chunks`: s = ceil(n_chunks / n) a rank, in rank order, the last ranks
+    short or empty; every chunk without a part."""
+    if part is None:
+        return 0, n_chunks
+    r, n = part
+    s = -(-n_chunks // n)
+    return min(r * s, n_chunks), min((r + 1) * s, n_chunks)
+
+
 def kept_chunks(dataset, path: str, preds) -> list:
     """Which chunks of a table a lockstep walk under `preds` must read."""
     chunk_rows = dataset.header(path)["columns"][preds[0][0]]["chunk_blocks"] * BLOCK \
@@ -66,12 +79,13 @@ def kept_chunks(dataset, path: str, preds) -> list:
     return keep
 
 
-def table_payload_bytes(dataset, path: str, columns, preds) -> int:
+def table_payload_bytes(dataset, path: str, columns, preds, part=None) -> int:
     """Packed payload bytes of every chunk of `columns` that `preds` do not
-    rule out."""
+    rule out; with `part` = (r, n), of rank r's chunks alone."""
     keep = kept_chunks(dataset, path, preds)
     total = 0
     for col in columns:
         chunks = dataset.chunks(path, col)
-        total += sum(m["nbytes"] for i, m in enumerate(chunks) if keep is None or keep[i])
+        lo, hi = rank_chunks(len(chunks), part)
+        total += sum(chunks[i]["nbytes"] for i in range(lo, hi) if keep is None or keep[i])
     return total
