@@ -26,6 +26,10 @@ from flbench.dataset import Categorical, rng_of
 
 VERSION = 2
 TABLE = "lineitem.flt"
+#: the overrides that cut this configuration to a size a CPU test holds
+#: (flbench/tests): several chunks a column and several lockstep windows
+SMALL = {"orders": 6000, "parts": 20000, "suppliers": 1000, "text_pool_bytes": 1 << 16,
+         "file": {"writer": "fio_table.write_table", "codec": "auto", "chunk_blocks": 1}}
 
 NOUNS = ("foxes ideas theodolites pinto_beans instructions dependencies excuses platelets "
          "asymptotes courts dolphins multipliers sauternes warthogs frets dinos attainments "

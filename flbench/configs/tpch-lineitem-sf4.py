@@ -9,3 +9,6 @@ VERSION = _SF1.VERSION
 TABLE = _SF1.TABLE
 generate = _SF1.generate
 write = _SF1.write
+#: the test size of SF1 with half its orders: each of a test's two ranks
+#: takes a few chunks
+SMALL = {**_SF1.SMALL, "orders": 3000}

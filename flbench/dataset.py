@@ -5,6 +5,8 @@ entries and the reference.
 The generator of a configuration (`configs/<name>.py`) defines:
 
   VERSION                          bumped whenever what it makes changes
+  SMALL                            the overrides that cut the configuration
+                                   to the size of a CPU test (flbench/tests)
   generate(config, seed) -> data   {file key: {column: array}}; a plain file's
                                    one column is keyed None, a string column is
                                    a `Categorical`

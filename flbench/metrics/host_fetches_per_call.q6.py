@@ -3,4 +3,4 @@ the host's speed moves values_per_s between runs by more than its bound can
 hold, so the cell's end-to-end metrics are setup_s and memory_peak_mb and its
 speed is read here, from the traced run."""
 
-from .host_fetches_per_call import read  # noqa: F401
+from .host_fetches_per_call import COUNTERS, read  # noqa: F401

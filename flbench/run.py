@@ -61,7 +61,9 @@ class Record:
     values: int = 0
     calls: int = 0
     failed: int = 0
-    #: the program's counters over the window: launches, host_fetches
+    #: the change over the window of each program counter that the cell's
+    #: metric readers name (their COUNTERS), by dotted path; a counter the
+    #: program lacks is left out
     counters: dict = field(default_factory=dict)
     #: summed entries/<entry>.work_of over the window's calls (traced runs)
     work: dict = field(default_factory=dict)
@@ -108,11 +110,27 @@ def _program_entry(entry: str):
     return getattr(importlib.import_module(f"{PROGRAM}.{mod}"), fn)
 
 
-def _counters() -> dict:
-    from fastlanes_tpu_torch import analytics
-    from fastlanes_tpu_torch.kernels import cuda_codecs
-    return {"launches": sum(cuda_codecs.LAUNCHES.values()),
-            "host_fetches": analytics.HOST_FETCHES}
+def _counter(path: str):
+    """The program's counter at `path`, a dotted path into fastlanes_tpu_torch
+    (`<module>.<attribute>`), a dict's values summed; None where the program
+    has no such module or attribute."""
+    import importlib
+
+    mod, attr = path.rsplit(".", 1)
+    name = f"{PROGRAM}.{mod}"
+    try:
+        module = importlib.import_module(name)
+    except ModuleNotFoundError as e:
+        if not (name + ".").startswith(f"{e.name}."):  # not a module the program lacks
+            raise
+        return None
+    value = getattr(module, attr, None)
+    return sum(value.values()) if isinstance(value, dict) else value
+
+
+def _counters(paths) -> dict:
+    """The counters at `paths` that the program has, by path."""
+    return {p: v for p in paths if (v := _counter(p)) is not None}
 
 
 def _sync(device) -> None:
@@ -345,10 +363,14 @@ def _run(bench, cell, seed, seconds, trace, device, ds, spec, fn, emod, rmod, gr
     calls = traffic.Traffic(spec, ds, seed, stream=1).calls()
     sample = sample_of(spec, seed)
     values_of = lambda call: emod.values(ds, call.kwargs)  # noqa: E731
+    wanted = [m for m in (bench["per_layer"] if trace else bench["end_to_end"])
+              if cell_name in m.get("workloads", [cell_name])]
+    readers = {m["name"]: _module("metrics", m["name"]) for m in wanted}
+    counted = sorted({c for r in readers.values() for c in getattr(r, "COUNTERS", ())})
     host_before = host.describe(ds.paths())
-    before, usage = _counters(), resource.getrusage(resource.RUSAGE_SELF)
+    before, usage = _counters(counted), resource.getrusage(resource.RUSAGE_SELF)
     issued, prof = measure(fn, calls, seconds, device, sample, values_of, record, trace, group)
-    after, used = _counters(), resource.getrusage(resource.RUSAGE_SELF)
+    after, used = _counters(counted), resource.getrusage(resource.RUSAGE_SELF)
     print("window: %d calls in %.3f s; host cpu user %.2f s, system %.2f s; %d minor faults; "
           "%d / %d context switches (voluntary / not)" % (
               record.calls, record.window_s, used.ru_utime - usage.ru_utime,
@@ -365,7 +387,7 @@ def _run(bench, cell, seed, seconds, trace, device, ds, spec, fn, emod, rmod, gr
         f"{statistics.median(record.latencies_s[a:a + tenth]) * 1e3:.1f}"
         for a in range(0, tenth * 10, tenth) if record.latencies_s[a:a + tenth]),
         file=sys.stderr)
-    record.counters = {k: after[k] - before[k] for k in after}
+    record.counters = {k: after[k] - before[k] for k in after if k in before}
     host_state = {"before_window": host_before, "after_window": host.describe(ds.paths()),
                   "cpus_seen": sorted(c for c in record.cpus_seen if c is not None),
                   "window_cpu_s": [used.ru_utime - usage.ru_utime,
@@ -425,12 +447,9 @@ def _run(bench, cell, seed, seconds, trace, device, ds, spec, fn, emod, rmod, gr
     correct = (mismatched == 0 and record.failed == 0 and len(kept) >= 1
                and all(c["value"] <= c["max"] for c in checks.values() if "max" in c))
 
-    wanted = bench["per_layer"] if trace else bench["end_to_end"]
     metrics = {}
     for m in wanted:
-        if "workloads" in m and cell_name not in m["workloads"]:
-            continue
-        value = _module("metrics", m["name"]).read(record)
+        value = readers[m["name"]].read(record)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     result = {"correct": correct, "attempted": record.calls, "failed": record.failed,

@@ -9,11 +9,36 @@ children's subtrees. Only the spans inside the window count."""
 
 from __future__ import annotations
 
+import sys
+import types
+
 PREFIX = "fl."
-#: the program's stage spans; every other `fl.` span is the root span of a
-#: public entry, named after it
-STAGES = frozenset({"header", "dict", "zonemap", "window", "read", "decode", "h2d",
-                    "mask", "acc", "fetch", "combine"})
+
+
+def _probe():
+    """What `entry_names` wraps to learn the code of an entry's wrapper."""
+
+
+def entry_names() -> frozenset:
+    """The names of the program's public entries, read from the program: the
+    functions of its modules loaded in this process that its decorator
+    `utils.trace.entry` made, known by their code, which is that of the
+    wrapper `entry` makes of any function. Each opens the root span
+    `fl.<its name>`; every other `fl.` span is a stage. A function whose
+    module is not loaded cannot have run, so a run's entries are all here.
+    Empty where the program has no such decorator."""
+    from .run import PROGRAM
+
+    trace = sys.modules.get(PROGRAM + ".utils.trace")
+    entry = getattr(trace, "entry", None)
+    if entry is None:
+        return frozenset()
+    code = getattr(entry(_probe), "__code__", None)
+    return frozenset(
+        fn.__name__ for name, mod in list(sys.modules.items())
+        if mod is not None and (name == PROGRAM or name.startswith(PROGRAM + "."))
+        for fn in list(vars(mod).values())
+        if isinstance(fn, types.FunctionType) and fn.__code__ is code)
 
 
 def in_window(trace) -> list:

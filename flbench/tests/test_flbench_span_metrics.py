@@ -5,6 +5,7 @@ a run without them reads nothing."""
 
 import pytest
 
+from fastlanes_tpu_torch import analytics  # noqa: F401  (its entries name the root spans)
 from flbench import spans
 from flbench.run import Record, _module
 from flbench.trace import Trace, breakdown
@@ -33,7 +34,8 @@ def fake() -> Record:
         ("fl.header", 13.1, 13.2), ("fl.read", 13.2, 13.5),
     ]
     return Record(setup_s=3.5, window_s=2.0, values=8_000_000, calls=2,
-                  counters={"launches": 10, "host_fetches": 2}, trace=t)
+                  counters={"kernels.cuda_codecs.LAUNCHES": 10, "analytics.HOST_FETCHES": 2},
+                  trace=t)
 
 
 @pytest.mark.parametrize("name,want", [
