@@ -77,7 +77,8 @@ of all eleven kernels over every dtype and width (1320 launches) gives the
 cold start. Last it times each kernel at the largest shape its path gave it,
 beside its bound, its plain version and a device copy, all eleven kernels
 of every dtype at a size whose bytes bound is at least 0.1 ms, the group
-accumulator with and without its spread copies, and each read, encode, scan,
+accumulator's kernel beside its plain version (TPC-H Q1's shape and the
+group table's 1000 and 65536 groups), and each read, encode, scan,
 aggregation and query end to end (a query also in rows out per second). On every driven path, each (kernel,
 dtype) pair is held against its plain version on the tensors of its largest
 launch there, and the `kernels` line counts the launches by dtype. The
@@ -3329,32 +3330,71 @@ def host_encode_costs(dev: dict) -> dict:
     return out
 
 
+Q1_ROWS = 6_001_215  # TPC-H LINEITEM at SF1
+
+
+def q1_group_columns(seed: int) -> dict:
+    """Device columns of TPC-H Q1's GROUP BY shape: a u8 key of 3 groups
+    (l_returnflag's codes), f64 decimals (l_extendedprice) and u8 values
+    (l_quantity), and a WHERE mask keeping about half the rows."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = Q1_ROWS
+    cents = torch.randint(90_000, 10_500_000, (n,), device="cuda", generator=gen)
+    return {"key": torch.randint(0, 3, (n,), device="cuda", generator=gen).to(torch.uint8),
+            "f64": cents.to(torch.float64) / torch.tensor(100.0, device="cuda",
+                                                           dtype=torch.float64),
+            "u8": torch.randint(1, 51, (n,), device="cuda", generator=gen).to(torch.uint8),
+            "mask": torch.rand(n, device="cuda", generator=gen) < 0.5}
+
+
 def group_accumulator_rows(table_path: str, group_path: str) -> list:
-    """The device time of one group_stats accumulation (`_GroupAcc.feed`)
-    over a whole decoded column pair, with the copies the accumulator
-    chooses for its group count and with one copy: what the spread buys
-    where few groups put the atomic adds on few addresses."""
+    """The group accumulator's kernel (kernels/cuda_group.py) against its
+    plain version (_GroupAcc.feed_plain, the copies spread as it chooses) on
+    the card: at TPC-H Q1's shape (6 M rows, 3 groups, f64 and u8 values, a
+    mask) and on the group table's 1000 and 65536 groups. Each row holds the
+    fetched state of both equal, then times one feed of each (CUDA events)
+    beside the kernel's bytes bound (key, value and mask read once) and one
+    scatter_reduce_ amin of the plain version's extremes (`library_ms`)."""
     rows = []
     device = torch.device("cuda")
+    q1 = q1_group_columns(SEED + 12)
+    inputs = [(f"q1 returnflag->{v}", q1["key"], q1[v], q1["mask"], 3) for v in ("f64", "u8")]
     for path, key, value in ((table_path, "cur", "price"), (group_path, "store", "price"),
                              (group_path, "sku", "amount")):
         (kb, kdt, kvt, valid, _), = analytics._decoded_chunks(path, key, device, window=1 << 20)
         (vb, vdt, vvt, _, _), = analytics._decoded_chunks(path, value, device, window=1 << 20)
-        flat_k = analytics._flatten_logical(kb, kdt, kvt)
-        flat_v = analytics._flatten_logical(vb, vdt, vvt)
-        k = int((flat_k.key[:valid].to(torch.int64) + flat_k.offset).max()) + 1
-        row = {"path": f"{key}->{value}", "groups": k, "rows": valid}
-        for label, cap in (("chosen", analytics._SPREAD), ("one_copy", 1)):
-            real, analytics._SPREAD = analytics._SPREAD, cap
-            try:
-                acc = analytics._GroupAcc(k, flat_v, device)
-            finally:
-                analytics._SPREAD = real
-            row[label] = {"spread": acc.spread, "feed_ms": time_cuda(
-                lambda: acc.feed(flat_k, flat_v, valid, None), 5)}
-            del acc
-        rows.append(row)
-        del kb, vb, flat_k, flat_v
+        kb, vb = kb.reshape(-1)[:valid], vb.reshape(-1)[:valid]
+        fk = analytics._flatten_logical(kb, kdt, kvt)
+        inputs.append((f"{key}->{value}", kb, vb, None,
+                       int((fk.key.to(torch.int64) + fk.offset).max()) + 1))
+    for label, keys, values, mask, k in inputs:
+        flat_k = analytics._flatten_logical(keys, None, None)
+        flat_v = analytics._flatten_logical(values, None, None)
+        valid = len(flat_v)
+        accs = {mode: analytics._GroupAcc(k, flat_v, device, plain=mode == "plain")
+                for mode in ("kernel", "plain")}
+        for acc in accs.values():
+            acc.feed(flat_k, flat_v, valid, mask)
+        got, want = (accs[m].host_state()[2][0] for m in ("kernel", "plain"))
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"group accumulator {label}: the kernel's state differs "
+                                 "from the plain version's")
+        ms = {m: time_cuda(lambda: acc.feed(flat_k, flat_v, valid, mask), 5)
+              for m, acc in accs.items()}
+        plain = accs["plain"]
+        group = (flat_k.key.to(torch.int64) + flat_k.offset).clamp(0, k)
+        slot = torch.arange(valid, device=device) % plain.spread * (k + 1) + group
+        ext = flat_v.key.to(torch.int64)
+        read_bytes = valid * (flat_k.key.element_size() + flat_v.key.element_size()
+                              + (0 if mask is None else 1))
+        rows.append({"path": label, "groups": k, "rows": valid, "kind": plain.kind,
+                     "mode": accs["kernel"].mode, "kernel_spread": accs["kernel"].spread,
+                     "plain_spread": plain.spread, "equal": True,
+                     "kernel_ms": ms["kernel"], "plain_ms": ms["plain"],
+                     "bound_ms": read_bytes / HBM_BYTES_PER_S * 1e3, "bound_bytes": read_bytes,
+                     "library_ms": time_cuda(
+                         lambda: plain.mn.scatter_reduce_(0, slot, ext, "amin"), 5)})
+        del accs, plain, group, slot, ext
     return rows
 
 

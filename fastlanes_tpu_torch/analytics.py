@@ -75,6 +75,7 @@ import torch
 
 from . import fio, fio_device, zonemaps
 from .core import layout
+from .kernels import cuda_group
 from .ops import _engine as eng
 from .parallel import shard
 from .utils.trace import entry, span, spanned
@@ -1152,9 +1153,11 @@ def scan_where_multi(path, preds, column: Optional[str] = None,
 # GROUP BY: per-group sum/min/max/count of a value column grouped by an
 # integer key column, reduced on the device window by window with the scans'
 # exactness. Rows that leave every group (tail padding, a null key or value,
-# a failed WHERE, a key outside [0, k)) go to a trash slot k. The reduction
-# is plain torch (index_add_ for counts and sums, scatter_reduce_ amin/amax
-# for extremes, the same int64 forms as the scans):
+# a failed WHERE, a key outside [0, k)) go to a trash slot k. On the card one
+# kernel a window does the reduction (kernels/cuda_group.py); its plain
+# version, which CPU tensors take, is torch (index_add_ for counts and sums,
+# scatter_reduce_ amin/amax for extremes). Both keep the same int64 forms as
+# the scans:
 #
 #   int   (values of up to 32 bits) [count, sum of the signed key]; the host
 #         adds count * offset for unsigned columns
@@ -1172,8 +1175,10 @@ _GROUP_CAP_INT = 65536
 _GROUP_CAP_FLOAT = 1024
 #: few groups, or one hot group of a skewed key, put the atomic adds of a
 #: window on a handful of addresses: a group accumulator is spread over
-#: copies (row i adds into copy i % S), as many as _GROUP_BYTES of device
-#: memory holds, at most _SPREAD
+#: copies (the plain version: row i adds into copy i % S; the kernel: warp w
+#: into copy w % S), as many as _GROUP_BYTES of device memory holds, at most
+#: _SPREAD. An accumulator that fits in a block's shared memory on the card
+#: keeps one copy: the kernel's blocks are its copies.
 _GROUP_BYTES = 1 << 25
 _GROUP_FLUSH_ROWS = 1 << 31
 
@@ -1185,9 +1190,12 @@ def _spread_of(slots: int, width: int) -> int:
 
 class _GroupAcc:
     """Per-group accumulator on the device, shared by every window and file
-    of one group_stats call (see above)."""
+    of one group_stats call (see above). `mode`: "plain" (a CPU device, or
+    `plain=True` on any device) feeds through feed_plain; "shared" and
+    "global" through the card's kernel, "shared" where the accumulator fits
+    in the shared memory one block may take (cuda_group.fits_shared)."""
 
-    def __init__(self, k: int, flat: _Flat, device):
+    def __init__(self, k: int, flat: _Flat, device, plain: bool = False):
         self.k = k
         self.kind = ("i64" if flat.bits == 64 else "int") \
             if flat.kind == "int" else flat.kind
@@ -1199,7 +1207,14 @@ class _GroupAcc:
         else:
             _dt, _e, _f, planes, buckets, _d = _FLOAT_SPEC[self.kind]
             self.n_cols = 4 + 2 * buckets * planes
-        self.spread = _spread_of(k + 1, self.n_cols + 2)
+        device = torch.device(device)
+        if plain or device.type != "cuda":
+            self.mode = "plain"
+        elif cuda_group.fits_shared(k, self.n_cols, cuda_group.shared_bytes(device)):
+            self.mode = "shared"
+        else:
+            self.mode = "global"
+        self.spread = 1 if self.mode == "shared" else _spread_of(k + 1, self.n_cols + 2)
         slots = self.spread * (k + 1)
         self.add = torch.zeros(slots * self.n_cols, dtype=torch.int64,
                                device=device)
@@ -1218,6 +1233,17 @@ class _GroupAcc:
         if self.rows + valid >= _GROUP_FLUSH_ROWS:
             self.flush()
         self.rows += valid
+        if self.mode == "plain":
+            self.feed_plain(flat_k, flat_v, valid, mask)
+        else:
+            cuda_group.feed(flat_k.key, flat_k.offset, flat_v.key, self.kind, valid, mask,
+                            self.k, self.add, self.mn, self.mx, self.spread,
+                            self.mode == "shared")
+
+    def feed_plain(self, flat_k: _Flat, flat_v: _Flat, valid: int, mask):
+        """The kernel's plain version: feed's reduction in torch, on any
+        device, into the accumulator's spread copies (row i into copy
+        i % spread)."""
         k = self.k
         g = flat_k.key[:valid].to(torch.int64) + flat_k.offset
         # a negative key indexes from the end, as the reference's scatter
@@ -1270,10 +1296,11 @@ class _GroupAcc:
         if not self.rows:
             return
         k, s, c = self.k, self.spread, self.n_cols
-        sums = self.add.view(s, k + 1, c).sum(0)[:k]
-        mins = self.mn.view(s, k + 1).amin(0)[:k]
-        maxs = self.mx.view(s, k + 1).amax(0)[:k]
-        out = _fetch_np(torch.cat([sums.reshape(-1), mins, maxs]))
+        sums, mins, maxs = self.add.view(s, k + 1, c), self.mn.view(s, k + 1), self.mx.view(s, k + 1)
+        # one copy (the kernel's SHARED mode) has nothing to fold
+        sums, mins, maxs = ((sums.sum(0), mins.amin(0), maxs.amax(0)) if s > 1
+                            else (sums[0], mins[0], maxs[0]))
+        out = _fetch_np(torch.cat([sums[:k].reshape(-1), mins[:k], maxs[:k]]))
         self.parts.append((out[:k * c].reshape(k, c), out[k * c:k * c + k],
                            out[k * c + k:]))
         self.add.zero_()

@@ -1,9 +1,10 @@
 """Build and load the CUDA kernel library.
 
-`csrc/codecs.cu` is compiled with nvcc for sm_90a into
+`csrc/codecs.cu` (the codec kernels) and `csrc/group_acc.cu` (the GROUP BY
+accumulator's kernel) are compiled with nvcc for sm_90a into
 `fastlanes_tpu_torch/build/libfastlanes_cuda.so` at first use and loaded with
 ctypes. The library has a plain C interface and includes no PyTorch header,
-so the build takes seconds. It is rebuilt when the source's hash changes.
+so the build takes seconds. It is rebuilt when the sources' hash changes.
 A failed build raises; nothing falls back to another path.
 """
 
@@ -19,7 +20,7 @@ import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = (os.path.join(_PKG, "csrc", "codecs.cu"),)
+SOURCES = (os.path.join(_PKG, "csrc", "codecs.cu"), os.path.join(_PKG, "csrc", "group_acc.cu"))
 BUILD_DIR = os.path.join(_PKG, "build")
 LIB_NAME = "libfastlanes_cuda.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -16,6 +16,7 @@ from fastlanes_tpu_torch import analytics as tan
 from fastlanes_tpu_torch import fio as tfio
 from fastlanes_tpu_torch import fio_device as tdev
 from fastlanes_tpu_torch import fio_table as ttab
+from fastlanes_tpu_torch.kernels import cuda_group
 
 from test_torch_analytics_scan import assert_same
 from test_torch_fio_table import table_columns
@@ -149,6 +150,41 @@ def test_the_accumulator_spreads_its_atomic_adds(k, kind, spread):
     assert acc.spread == spread
     held = (acc.add.numel() + acc.mn.numel() + acc.mx.numel()) * 8
     assert held <= tan._GROUP_BYTES
+
+
+H100_SHARED = 232_448  # the opt-in shared memory of one H100 block
+
+
+@pytest.mark.parametrize("k,n_cols,smem,fits", [
+    (3, 1028, H100_SHARED, True),        # TPC-H Q1: 3 groups of f64, ~33 KB
+    (27, 1028, H100_SHARED, True),       # the most f64 groups a block holds
+    (28, 1028, H100_SHARED, False),
+    (414, 68, H100_SHARED, True), (415, 68, H100_SHARED, False),        # f32
+    (7263, 2, H100_SHARED, True), (7264, 2, H100_SHARED, False),        # int
+    (5810, 3, H100_SHARED, True), (5811, 3, H100_SHARED, False),        # i64
+    (3, 2, 4 * 4 * 8, True), (3, 2, 4 * 4 * 8 - 1, False),              # to the byte
+    (0, 2, 0, False)])
+def test_the_shared_mode_rule_at_its_boundary(k, n_cols, smem, fits):
+    """The kernel keeps a block's accumulator in shared memory exactly when
+    (k + 1) slots of n_cols sums, a min and a max (int64) fit in it."""
+    assert cuda_group.fits_shared(k, n_cols, smem) is fits
+
+
+@pytest.mark.parametrize("kind", ["int", "i64", "f32", "f64"])
+def test_a_cpu_accumulator_takes_the_plain_version(kind):
+    """On the CPU the group accumulator feeds through its plain version
+    (the copies spread as before the kernel) and launches nothing."""
+    bits = 32 if kind in ("int", "f32") else 64
+    flat_v = tan._Flat("int" if kind == "i64" else kind,
+                       torch.arange(-50, 50, dtype=tan._INT_OF_BITS[bits]), bits)
+    flat_k = tan._Flat("int", torch.arange(100, dtype=torch.int16) % 9 - 1, 16)
+    acc = tan._GroupAcc(7, flat_v, "cpu")
+    assert (acc.mode, acc.spread) == ("plain", tan._spread_of(8, acc.n_cols + 2))
+    acc.feed(flat_k, flat_v, 90, None)
+    _kind, _offset, ((sums, mins, maxs),) = acc.host_state()
+    n_count = 4 if kind in ("f32", "f64") else 1
+    assert sums[:, :n_count].sum() == sum(1 for g in range(90) if g % 9 - 1 in range(7))
+    assert cuda_group.LAUNCHES == cuda_group.SHARED_LAUNCHES == 0
 
 
 def test_negative_keys_under_max_groups_index_from_the_end(tmp_path):

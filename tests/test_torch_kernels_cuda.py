@@ -643,3 +643,76 @@ def test_warmup_launches_each_kernel_once_per_entry(card):
     assert ck.LAUNCHES == {name: n_widths for name in ck.LAUNCHES}
     assert ck.LAUNCHES_BY_DTYPE == {(name, dt): layout.bit_width(dt)
                                     for name in ck.LAUNCHES for dt in layout.DTYPES}
+
+
+def group_values(rng, kind, n, one_bin):
+    """A value column of `kind` for the group accumulator: integers over
+    their whole range; floats with NaN, +-inf, -0.0 and subnormals, or (one
+    bin) decimals that share one exponent bucket."""
+    if kind in ("u8", "i32", "u32", "i64"):
+        dt = {"u8": np.uint8, "i32": np.int32, "u32": np.uint32, "i64": np.int64}[kind]
+        info = np.iinfo(dt)
+        return rng.integers(info.min, info.max, n, dtype=dt, endpoint=True)
+    dt = np.float32 if kind == "f32" else np.float64
+    if one_bin:
+        return np.round(rng.uniform(1024.0, 2047.99, n), 2).astype(dt)
+    vals = np.round(rng.uniform(-1e5, 1e5, n), 2).astype(dt)
+    at = rng.choice(n, 64, replace=False)
+    tiny = np.finfo(dt).smallest_subnormal
+    vals[at] = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0, tiny, -tiny, 3 * tiny] * 8, dt)
+    vals[rng.integers(0, n, 500)] = rng.integers(-9, 9, 500) * tiny
+    return vals
+
+
+GROUP_VALUE_COLS = {"u8": 2, "i32": 2, "u32": 2, "i64": 3, "f32": 68, "f64": 1028}
+GROUP_CASES = [(kind, side, masked, False) for kind in GROUP_VALUE_COLS
+               for side in ("few", "shared_limit", "past_limit") for masked in (False, True)]
+GROUP_CASES += [(kind, "few", True, True) for kind in ("f32", "f64")]
+
+
+@pytest.mark.parametrize("kind,side,masked,one_bin", GROUP_CASES,
+                         ids=[f"{c[0]}-{c[1]}-{'mask' if c[2] else 'nomask'}"
+                              f"{'-one_bin' if c[3] else ''}" for c in GROUP_CASES])
+def test_group_accumulator_kernel_equals_the_plain_version(card, kind, side, masked, one_bin):
+    """The group accumulator's kernel (kernels/cuda_group.py) and its plain
+    version (_GroupAcc.feed_plain) fed the same two windows on the card
+    fetch equal state, bit for bit: every value kind, with and without a
+    mask, negative keys and keys >= k, `valid` short of the tensor and not
+    a multiple of the block, and k on both sides of the shared-memory limit."""
+    from fastlanes_tpu_torch import analytics
+    from fastlanes_tpu_torch.kernels import cuda_group
+
+    cols = GROUP_VALUE_COLS[kind]
+    limit = cuda_group.shared_bytes(card) // ((cols + 2) * 8) - 1  # the largest shared k
+    k = {"few": 3, "shared_limit": limit, "past_limit": limit + 1}[side]
+    assert cuda_group.fits_shared(limit, cols, cuda_group.shared_bytes(card))
+    assert not cuda_group.fits_shared(limit + 1, cols, cuda_group.shared_bytes(card))
+    rng = np.random.default_rng(4000 + GROUP_CASES.index((kind, side, masked, one_bin)))
+    n = 200_003
+    valid = n - 77
+    # signed keys (int8, int16, int32) reach below 0 and past k; u8 keys are
+    # a flipped int8 and an offset of 128
+    if side == "few":
+        keys = (rng.integers(0, k + 3, n).astype(np.uint8) if masked
+                else rng.integers(-6, k + 3, n).astype(np.int8))
+    else:
+        keys = rng.integers(-5, k + 5, n).astype(np.int16 if side == "shared_limit" else np.int32)
+    flat_k = analytics._flatten_logical(torch.from_numpy(keys).to(card), None, None)
+    flat_v = analytics._flatten_logical(
+        torch.from_numpy(group_values(rng, kind, n, one_bin)).to(card), None, None)
+    mask = torch.from_numpy(rng.random(n) < 0.7).to(card) if masked else None
+    gk = analytics._GroupAcc(k, flat_v, card)
+    gp = analytics._GroupAcc(k, flat_v, card, plain=True)
+    assert gk.mode == ("global" if side == "past_limit" else "shared")
+    assert gp.mode == "plain"
+    launches, shared = cuda_group.LAUNCHES, cuda_group.SHARED_LAUNCHES
+    for acc in (gk, gp):
+        acc.feed(flat_k, flat_v, valid, mask)
+        acc.feed(flat_k, flat_v, valid // 3, None)
+    torch.cuda.synchronize()
+    assert cuda_group.LAUNCHES == launches + 2
+    assert cuda_group.SHARED_LAUNCHES == shared + (0 if side == "past_limit" else 2)
+    (kind_k, off_k, parts_k), (kind_p, off_p, parts_p) = gk.host_state(), gp.host_state()
+    assert (kind_k, off_k, len(parts_k)) == (kind_p, off_p, len(parts_p)) == (kind_p, off_p, 1)
+    for got, want in zip(parts_k[0], parts_p[0]):
+        assert got.dtype == want.dtype and np.array_equal(got, want), (kind, side, masked)
